@@ -1,0 +1,20 @@
+"""llama3-8b [dense] — 32L d_model=4096 32H (GQA kv=8) d_ff=14336
+vocab=128256.  [arXiv:2407.21783]
+
+This is also the paper's own evaluation model (ASR-KF-EGR §4.1: LLaMA-3 8B).
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3-8b",
+    arch_type="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=14336,
+    vocab_size=128256,
+    rope_theta=500000.0,
+    source="arXiv:2407.21783",
+)
