@@ -7,20 +7,22 @@ and serves on an NVIDIA GPU.
 Phases (any failure exits non-zero without the final ``ok`` line):
   1. device — a CUDA card is required; prints its name, count and
      ``nvidia-smi`` name/power limit; TF32 is switched off for f32 math;
-  2. build — every hand-written kernel is compiled from the sources in this
-     checkout with ``nvcc`` (all sources at once), ``-Xptxas -v`` printed;
+  2. build — the hand-written kernel is compiled from the source in this
+     checkout with ``nvcc``, ``-Xptxas -v`` printed;
   3. kernels vs plain versions — every contract case of the paged
      decode-attention kernel (tests/test_torch_paged_attn.py's cases plus
      the serving shape) against its plain PyTorch version on the card;
   4. reference check — the tiny model at f32, greedy, served on the card
-     through the kernel and on the CPU through the plain version: the
-     tokens must agree;
+     through the kernel and on the CPU through the plain version, on two
+     traces: a bounded pool that swaps, and recovery settings that thaw
+     and rewind; tokens and paging counters must agree;
   5. main path — llama3-8b at full published width and depth (bf16 random
      weights made on the card from a seed) serves 8 requests of 128 new
      tokens through the paged engine with freeze, host stash/swap and
-     recovery; the kernel launch counter must equal decode steps x 32; a
-     ``torch.profiler`` window over a few decode steps reports the device
-     busy share and the top kernels;
+     recovery, with no profiler attached; the kernel launch counter must
+     equal decode steps x 32.  A second, short serve on the same engine
+     runs a ``torch.profiler`` window over a few decode steps for the
+     device busy share and the top kernels;
   6. kernel timing at the serving shape: device time per call from CUDA
      graph replay (inputs rotated so K/V come cold from HBM as in the
      decode step), its bound, the plain version, and SDPA over the
@@ -30,7 +32,6 @@ longer reports go to ``chiprun_out/``.
 """
 from __future__ import annotations
 
-import concurrent.futures
 import json
 import pathlib
 import statistics
@@ -38,11 +39,13 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM, dense bf16
 SEED = 0
 
 
@@ -70,19 +73,15 @@ def phase_device():
     return name, count, card
 
 
-def phase_build(kernel_modules):
-    """Build every kernel source at once (one nvcc per source)."""
+def phase_build(K):
+    """Build the kernel source with nvcc and load it."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(kernel_modules)) as ex:
-        futs = {m.__name__: ex.submit(m.build) for m in kernel_modules}
-        for name, f in futs.items():
-            path, ptxas = f.result()
-            log(f"built {name} -> {path.relative_to(ROOT)}")
-            for line in ptxas.splitlines():
-                if "registers" in line or "smem" in line or "spill" in line:
-                    log(f"  ptxas: {line.strip()}")
-    for m in kernel_modules:
-        m.load()
+    path, ptxas = K.build()
+    log(f"built {K.__name__} -> {path.relative_to(ROOT)}")
+    for line in ptxas.splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+    K.load()
     log(f"build: {time.perf_counter() - t0:.1f}s")
 
 
@@ -95,7 +94,6 @@ def phase_kernel_cases(torch, C, K, ref, report):
         torch.cuda.synchronize()
         return out.float().cpu().numpy(), rel.cpu().numpy()
 
-    import numpy as np
     for case in C.tolerance_cases():
         out_k, rel_k = run(K.paged_decode_attention_cuda, case.inputs,
                            case.dtype)
@@ -133,24 +131,27 @@ def phase_kernel_cases(torch, C, K, ref, report):
     return worst[main]
 
 
-PROFILE_STEPS = range(100, 105)      # pure decode steps under the profiler
+PROFILE_STEPS = range(8, 13)     # pure decode steps of the profiled serve
 
 
-def _fifo(torch, launcher, engine, requests):
+def _fifo(torch, launcher, engine, requests, profile=None):
     """serve_fifo with per-call timing of pure decode steps (no prefill in
-    flight, so the call is one decode step plus its boundary tick), and
-    ``torch.profiler`` over ``PROFILE_STEPS`` of them."""
+    flight, so the call is one decode step plus its boundary tick).  With
+    ``profile`` (a range of pure-step indices) a ``torch.profiler`` window
+    covers those steps; without it no profiler is created."""
     step_ms = []
     orig = engine.step_once
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
+    prof = None
+    if profile is not None:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
     window = {"ms": 0.0, "on": False}
 
     def timed():
         pure = not engine.prefills and engine.n_active_lanes > 0
         i = len(step_ms)
-        if pure and i == PROFILE_STEPS.start:
+        if prof is not None and pure and i == profile.start:
             prof.start()
             window["on"] = True
         t0 = time.perf_counter()
@@ -158,11 +159,11 @@ def _fifo(torch, launcher, engine, requests):
         torch.cuda.synchronize()
         if pure:
             step_ms.append(1e3 * (time.perf_counter() - t0))
-            if i in PROFILE_STEPS:
+            if window["on"]:
                 window["ms"] += step_ms[-1]
-            if i == PROFILE_STEPS[-1]:
-                prof.stop()
-                window["on"] = False
+                if i == profile[-1]:
+                    prof.stop()
+                    window["on"] = False
         return out
 
     engine.step_once = timed
@@ -200,38 +201,77 @@ def _profile_summary(torch, prof, wall_ms, card_line):
         log(line)
 
 
-def phase_reference(torch, K, launcher, MD, engine_mod, cfg_mod):
-    """Tiny f32 model, greedy: card (kernel) and CPU (plain) must agree."""
+# card-vs-CPU traces of the tiny model at f32, greedy: freeze settings over
+# the launcher's, prompt lengths, new tokens, serving config
+REFERENCE_TRACES = {
+    # a bounded pool that swaps, with the launcher's freeze settings
+    "bounded_swap": dict(
+        freeze={}, prompts=(150, 90, 200), n_toks=(60, 60, 60),
+        serving=dict(max_seq=512, n_lanes=2, max_active_pages=4,
+                     prefill_chunk=64)),
+    # tests/test_torch_engine.py's recovery trace: entropy spikes drive
+    # thaws (thaw_lane, ensure_resident) and page-aware rewinds
+    "recovery_thaw": dict(
+        freeze=dict(page_size=8, window=8, quantile=0.6, k_soft=0.7,
+                    entropy_abs_threshold=0.5, rewalk_tokens=6),
+        prompts=(48, 20), n_toks=(70, 50),
+        serving=dict(max_seq=256, n_lanes=2, max_active_pages=6,
+                     prefill_chunk=16, rewind_cooldown=12)),
+}
+
+
+def _reference_trace(K, launcher, MD, engine_mod, cfg_mod, spec):
+    """Serve one trace on the card (kernel) and on the CPU (plain); the
+    tokens, rewinds and paging counters must be identical."""
     import dataclasses
-    import numpy as np
     cfg = launcher.launcher_config("llama3-8b", tiny=True)
-    cfg = dataclasses.replace(cfg, dtype="float32")
+    cfg = dataclasses.replace(cfg, dtype="float32", freeze=dataclasses.replace(
+        cfg.freeze, **spec["freeze"]))
     params_cpu = MD.init_params(cfg, SEED, "cpu")
     params_gpu = _to_device(params_cpu, "cuda")
     rng = np.random.RandomState(SEED)
     prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (150, 90, 200)]
+               for n in spec["prompts"]]
     sp = engine_mod.SamplingParams.greedy()
-    results = {}
+    runs = {}
     for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
-        sv = cfg_mod.ServingConfig(max_seq=512, n_lanes=2,
-                                   max_active_pages=4, prefill_chunk=64)
+        sv = cfg_mod.ServingConfig(**spec["serving"])
         eng = engine_mod.PagedContinuousEngine(cfg, params, sv, device=dev)
-        reqs = [engine_mod.Request(u, p, 60, sp)
-                for u, p in enumerate(prompts)]
+        reqs = [engine_mod.Request(u, p, n, sp)
+                for u, (p, n) in enumerate(zip(prompts, spec["n_toks"]))]
         before = K.paged_decode_attention_cuda.launches
         launcher.serve_fifo(eng, reqs)
         launched = K.paged_decode_attention_cuda.launches - before
-        results[dev] = ([r.result for r in reqs], eng, launched)
-    toks_g, eng_g, launched_g = results["cuda"]
-    toks_c, eng_c, launched_c = results["cpu"]
-    assert launched_g == eng_g.wall_step * cfg.num_layers and launched_c == 0
-    for u, (a, b) in enumerate(zip(toks_g, toks_c)):
+        ctl = eng.ctl
+        assert not ctl.store and not ctl.frozen_meta, dev
+        runs[dev] = dict(
+            tokens=[r.result for r in reqs], launched=launched,
+            steps=eng.wall_step, rewinds=[r.telemetry.rewinds for r in reqs],
+            counters=(ctl.n_swap_out, ctl.n_swap_in, ctl.n_thaw),
+            peak_kv=eng.peak_kv_bytes)
+    g, c = runs["cuda"], runs["cpu"]
+    assert g["launched"] == g["steps"] * cfg.num_layers and c["launched"] == 0
+    for u, (a, b) in enumerate(zip(g["tokens"], c["tokens"])):
         np.testing.assert_array_equal(a, b, f"request {u}: card vs CPU")
-    assert eng_g.ctl.n_swap_out == eng_c.ctl.n_swap_out > 0
-    log(f"reference: tiny f32 greedy, 3 requests x 60 tokens: card (kernel) "
-        f"== CPU (plain) tokens; swaps {eng_g.ctl.n_swap_out} out / "
-        f"{eng_g.ctl.n_swap_in} in on both")
+    for key in ("steps", "rewinds", "counters", "peak_kv"):
+        assert g[key] == c[key], (key, g[key], c[key])
+    return g
+
+
+def phase_reference(K, launcher, MD, engine_mod, cfg_mod):
+    """Tiny f32 model, greedy: card (kernel) and CPU (plain) must agree on
+    a swapping trace and on a thaw/rewind trace."""
+    for name, spec in REFERENCE_TRACES.items():
+        g = _reference_trace(K, launcher, MD, engine_mod, cfg_mod, spec)
+        out, inn, thaw = g["counters"]
+        if name == "bounded_swap":
+            assert out > 0, g["counters"]
+        else:
+            assert thaw > 0 and sum(g["rewinds"]) > 0, (thaw, g["rewinds"])
+        log(f"reference {name}: tiny f32 greedy, {len(spec['prompts'])} "
+            f"requests, {g['steps']} steps: card (kernel) == CPU (plain) "
+            f"tokens, swaps {out} out / {inn} in, {thaw} thawed, rewinds "
+            f"{g['rewinds']}, peak KV {g['peak_kv']} B on both")
 
 
 def _to_device(tree, dev):
@@ -240,8 +280,16 @@ def _to_device(tree, dev):
     return tree.to(dev)
 
 
+def _requests(engine_mod, cfg, rng, uids, new_tokens):
+    """Prompts of 700-1000 random ids: each 1024-token bucket overflows the
+    512-slot pool, so install stashes pages and decode swaps them."""
+    return [engine_mod.Request(
+        u, rng.randint(0, cfg.vocab_size, rng.randint(700, 1001)).astype(
+            np.int32), new_tokens, engine_mod.SamplingParams(temperature=0.7))
+        for u in uids]
+
+
 def phase_main_path(torch, K, launcher, MD, engine_mod, cfg_mod, card_line):
-    import numpy as np
     cfg = launcher.launcher_config("llama3-8b", tiny=False)
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype) == \
@@ -256,20 +304,16 @@ def phase_main_path(torch, K, launcher, MD, engine_mod, cfg_mod, card_line):
                                prefill_chunk=256, seed=SEED)
     engine = engine_mod.PagedContinuousEngine(cfg, params, sv, device="cuda")
     rng = np.random.RandomState(SEED)
-    reqs = [engine_mod.Request(
-        u, rng.randint(0, cfg.vocab_size, rng.randint(700, 1001)).astype(
-            np.int32), 128, engine_mod.SamplingParams(temperature=0.7))
-        for u in range(8)]
+    reqs = _requests(engine_mod, cfg, rng, range(8), 128)
     torch.cuda.reset_peak_memory_stats()
     K.paged_decode_attention_cuda.launches = 0
-    done, seconds, step_ms, prof, prof_ms = _fifo(torch, launcher, engine,
-                                                  reqs)
+    done, seconds, step_ms, _, _ = _fifo(torch, launcher, engine, reqs)
     launches = K.paged_decode_attention_cuda.launches
+    steps = engine.wall_step
     ctl = engine.ctl
     assert len(done) == 8 and all(len(r.result) == 128 for r in done)
     assert all(0 <= int(t) < cfg.vocab_size for r in done for t in r.result)
-    assert launches == engine.wall_step * cfg.num_layers, \
-        (launches, engine.wall_step)
+    assert launches == steps * cfg.num_layers, (launches, steps)
     assert ctl.n_swap_out > 0 and ctl.n_swap_in > 0
     peak_active = max(max(r.telemetry.active_kv) for r in done)
     assert peak_active <= 8 * 64, peak_active
@@ -279,15 +323,24 @@ def phase_main_path(torch, K, launcher, MD, engine_mod, cfg_mod, card_line):
     rewinds = sum(r.telemetry.rewinds for r in done)
     for line in launcher.summary_lines(engine, done, seconds, 4):
         log(f"  {line}")
-    med = statistics.median(step_ms)
-    log(f"main path [{card_line}]: {engine.wall_step} decode steps, "
+    half = len(step_ms) // 2
+    log(f"main path [{card_line}], no profiler: {steps} decode steps, "
         f"{launches} kernel launches (= steps x 32); pure decode step "
-        f"median {med:.2f} ms over {len(step_ms)} steps (4 lanes); "
-        f"{tokens / seconds:.1f} tokens/s end to end incl. prefill; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB; kv_device_bytes {engine.kv_device_bytes}; peak per-lane "
-        f"active KV {peak_active:.0f} slots; swaps {ctl.n_swap_out} out / "
+        f"median {statistics.median(step_ms):.2f} ms over {len(step_ms)} "
+        f"steps (4 lanes; first half {statistics.median(step_ms[:half]):.2f}"
+        f" ms, second half {statistics.median(step_ms[half:]):.2f} ms); "
+        f"{tokens / seconds:.1f} tokens/s end to end incl. prefill "
+        f"({tokens} tokens in {seconds:.2f} s); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"kv_device_bytes {engine.kv_device_bytes}; peak per-lane active KV "
+        f"{peak_active:.0f} slots; swaps {ctl.n_swap_out} out / "
         f"{ctl.n_swap_in} in / {ctl.n_thaw} thawed; {rewinds} rewinds")
+    # the profile comes from a second, short serve on the same engine, so
+    # the profiler's overhead stays out of the numbers above
+    prof_reqs = _requests(engine_mod, cfg, rng, range(8, 12), 48)
+    _, _, prof_steps, prof, prof_ms = _fifo(torch, launcher, engine,
+                                            prof_reqs, PROFILE_STEPS)
+    assert len(prof_steps) > PROFILE_STEPS[-1], len(prof_steps)
     _profile_summary(torch, prof, prof_ms, card_line)
     del params, engine
     torch.cuda.empty_cache()
@@ -360,30 +413,34 @@ def phase_timing(torch, C, K, ref, card_line):
     eager_ms = _eager_ms(torch, kernel, 400)
     ms = _graph_ms(torch, kernel, n_copies)
     plain_ms = _graph_ms(torch, plain, n_copies)
-    # bound: bytes this call must move — q, the live pages' K and V, the
-    # slot masks and tables, out and relevance — over HBM bandwidth; ops:
-    # 4 * H * hd flops per live token at the f32 rate
+    # bound: bytes this call must move — q; K and V of the valid slots of
+    # live pages; page table and visibility of every page; slot mask and
+    # quant flag of live pages (no page is flagged here, so no scale is
+    # read); out and relevance — over HBM bandwidth; ops: 4 * H * hd per
+    # valid slot of a live page at the bf16 rate (K and V are bf16)
     pt, vis, sm = (case.inputs[k] for k in ("page_table", "page_visible",
                                             "slot_mask"))
     live = (pt >= 0) & vis & sm.any(-1)
+    n_live = int(live.sum())
     live_tokens = int(sm[live].sum())
     elem = 2                                               # bf16
     nbytes = (B * H * hd * elem                            # q
-              + int(live.sum()) * page * KVH * hd * elem * 2   # K, V pages
-              + B * P * page + 3 * B * P * 4               # mask, tables
+              + live_tokens * KVH * hd * elem * 2          # K, V slots
+              + B * P * (4 + 1)                            # table, visible
+              + n_live * (page + 4)                        # mask, quant flag
               + B * H * hd * elem + B * P * 4)             # out, relevance
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * 4 * H * hd * live_tokens / F32_FLOPS_PER_S
+    ops_ms = 1e3 * 4 * H * hd * live_tokens / BF16_FLOPS_PER_S
     bound_ms = max(bytes_ms, ops_ms)
     # library yardstick: SDPA over each lane's gathered live tokens (padded
     # to the longest lane, masked), GQA heads expanded beforehand
     kf = x["k_pages"].reshape(B, P * page, KVH, hd)
     vf = x["v_pages"].reshape(B, P * page, KVH, hd)
     tok_live = torch.from_numpy((live[:, :, None] & sm).reshape(B, -1))
-    n_live = int(tok_live.sum(-1).max())
-    kg = torch.zeros((B, n_live, KVH, hd), dtype=kf.dtype, device="cuda")
+    n_pad = int(tok_live.sum(-1).max())
+    kg = torch.zeros((B, n_pad, KVH, hd), dtype=kf.dtype, device="cuda")
     vg = torch.zeros_like(kg)
-    mask = torch.full((B, 1, 1, n_live), float("-inf"), dtype=kf.dtype,
+    mask = torch.full((B, 1, 1, n_pad), float("-inf"), dtype=kf.dtype,
                       device="cuda")
     for b in range(B):
         idx = torch.nonzero(tok_live[b]).flatten().cuda()
@@ -397,7 +454,8 @@ def phase_timing(torch, C, K, ref, card_line):
     lib_ms = _graph_ms(torch, lambda i: F.scaled_dot_product_attention(
         qq, kq, vq, attn_mask=mask), n_copies)
     log(f"timing [{card_line}] at B={B} P={P} page={page} H={H} KVH={KVH} "
-        f"hd={hd} bf16, {int(live.sum())} live pages, device time per call "
+        f"hd={hd} bf16, {n_live} live pages, {live_tokens} valid slots in "
+        f"them, device time per call "
         f"from CUDA-graph replay: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"(bytes {nbytes}: {bytes_ms:.4f} ms; ops {ops_ms:.4f} ms) = "
         f"{100 * bound_ms / ms:.1f}% of the published peak, plain "
@@ -419,12 +477,12 @@ def main() -> int:
     from repro_torch.serving import config as cfg_mod
     from repro_torch.serving import engine as engine_mod
 
-    phase_build([K])
+    phase_build(K)
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke_cases.txt", "w") as report:
         report.write(f"{card_line}\n")
         err = phase_kernel_cases(torch, C, K, ref, report)
-    phase_reference(torch, K, launcher, MD, engine_mod, cfg_mod)
+    phase_reference(K, launcher, MD, engine_mod, cfg_mod)
     launches = phase_main_path(torch, K, launcher, MD, engine_mod, cfg_mod,
                                card_line)
     ms, plain_ms, bound_ms, bound_by, lib_ms = phase_timing(

@@ -293,8 +293,6 @@ cudaError_t launch_attn(int G, dim3 grid, cudaStream_t s, const void* q,
     PAGED_ATTN_CASE(1)
     PAGED_ATTN_CASE(2)
     PAGED_ATTN_CASE(4)
-    PAGED_ATTN_CASE(8)
-    PAGED_ATTN_CASE(16)
     default:
       return cudaErrorInvalidValue;
   }
@@ -308,7 +306,7 @@ cudaError_t launch_attn(int G, dim3 grid, cudaStream_t s, const void* q,
 // T (is_bf16 ? bf16 : f32); slot_mask (B,P,page) and page_visible (B,P) as
 // bytes; page_table and page_quant (B,P) int32; kv_scales (B,P,2,KVH) f32;
 // out (B,H,hd) T; rel (B,P) f32; relp scratch (B,KVH,P) f32.  All
-// contiguous.  H / KVH must be 1, 2, 4, 8 or 16 and hd a power of two up
+// contiguous.  H / KVH must be 1, 2 or 4 and hd a power of two up
 // to 128.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k, const void* v, const void* slot_mask,

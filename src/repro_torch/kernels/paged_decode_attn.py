@@ -28,9 +28,10 @@ import torch
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / \
     "paged_decode_attn.cu"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
-# what the kernel is compiled for: query rows per kv head, head_dim a power
-# of two up to 128, and pages of at most 256 slots
-GROUPS, MAX_HD, MAX_PAGE = (1, 2, 4, 8, 16), 128, 256
+# what the kernel is compiled for: query rows per kv head (those of the
+# configs and contract cases), head_dim a power of two up to 128, and pages
+# of at most 256 slots
+GROUPS, MAX_HD, MAX_PAGE = (1, 2, 4), 128, 256
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -109,15 +109,16 @@ def test_cpu_dispatch_takes_plain_version():
     out_o, rel_o = ops.paged_decode_attention(*C.call_args(t))
     out_p, rel_p = paged_decode_attention_ref(*C.call_args(t))
     assert torch.equal(out_o, out_p) and torch.equal(rel_o, rel_p)
-    assert paged_decode_attention_cuda.launches == before == 0
+    assert paged_decode_attention_cuda.launches == before
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
     case = CASES[sorted(CASES)[0]]
     t = C.to_torch(case.inputs, case.dtype, "cpu")
+    before = paged_decode_attention_cuda.launches
     with pytest.raises(ValueError, match="CUDA tensor"):
         paged_decode_attention_cuda(*C.call_args(t))
-    assert paged_decode_attention_cuda.launches == 0
+    assert paged_decode_attention_cuda.launches == before
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
