@@ -7,31 +7,39 @@ and serves on an NVIDIA GPU.
 Phases (any failure exits non-zero without the final ``ok`` line):
   1. device — a CUDA card is required; prints its name, count and
      ``nvidia-smi`` name/power limit; TF32 is switched off for f32 math;
-  2. build — the hand-written kernel is compiled from the source in this
-     checkout with ``nvcc``, ``-Xptxas -v`` printed;
-  3. kernels vs plain versions — every contract case of the paged
-     decode-attention kernel (tests/test_torch_paged_attn.py's cases plus
-     the serving shape) against its plain PyTorch version on the card;
+  2. build — the three hand-written kernels are compiled from the sources
+     in this checkout with ``nvcc``, one process each, started together;
+     ``-Xptxas -v`` is printed;
+  3. kernels vs plain versions, on the card — the paged decode-attention
+     kernel on every contract case of tests/test_torch_paged_attn.py plus
+     the serving shape; the freeze-masked decode-attention kernel on the
+     sweep of tests/test_kernels.py, a ragged S, a skipped block, a dead
+     lane and the main-path shape; the fused freeze update on its sweep
+     with scalar and per-lane clocks and fixed and quantile tau, exactly;
   4. reference check — the tiny model at f32, greedy, served on the card
-     through the kernel and on the CPU through the plain version, on two
-     traces: a bounded pool that swaps, and recovery settings that thaw
-     and rewind; tokens and paging counters must agree;
-  5. main path — llama3-8b at full published width and depth (bf16 random
-     weights made on the card from a seed) serves 8 requests of 128 new
-     tokens through the paged engine with freeze, host stash/swap and
-     recovery, with no profiler attached; the kernel launch counter must
-     equal decode steps x 32.  A second, short serve on the same engine
-     runs a ``torch.profiler`` window over a few decode steps for the
-     device busy share and the top kernels;
-  6. kernel timing at the serving shape: device time per call from CUDA
-     graph replay (inputs rotated so K/V come cold from HBM as in the
-     decode step), its bound, the plain version, and SDPA over the
-     gathered live pages as a library yardstick (never called by the port).
+     through the kernels and on the CPU through the plain versions: the
+     paged engine on a swapping trace and a thaw/rewind trace, the
+     contiguous engine on a freeze/offload trace and a rewind trace, and
+     ``Engine.generate``; tokens and counters must agree;
+  5. main paths — llama3-8b at full published width and depth (bf16 random
+     weights made on the card from a seed, once) serves 8 requests of 128
+     new tokens through the paged engine and then through the contiguous
+     ``ContinuousEngine`` (freeze, host offload, recovery), each with no
+     profiler attached and each kernel's launch counter read around the
+     serve; a short profiled serve on each engine gives the device busy
+     share.  ``Engine.generate`` then runs the paper's Table-1 protocol
+     (14-token prompt, 500 new tokens) with freeze off and on;
+  6. kernel timing at the main-path shapes: device time per call from CUDA
+     graph replay, the bound, the plain version, and a library yardstick
+     the port never calls (SDPA) where one PyTorch call computes the same
+     function.
 The line before last is the kernels JSON, the last line the ``ok`` JSON;
 longer reports go to ``chiprun_out/``.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -73,15 +81,18 @@ def phase_device():
     return name, count, card
 
 
-def phase_build(K):
-    """Build the kernel source with nvcc and load it."""
+def phase_build(mods):
+    """Build every kernel source with nvcc, one process each, all started
+    together, then load them."""
     t0 = time.perf_counter()
-    path, ptxas = K.build()
-    log(f"built {K.__name__} -> {path.relative_to(ROOT)}")
-    for line in ptxas.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-    K.load()
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        built = list(pool.map(lambda m: m.build(), mods))
+    for mod, (path, ptxas) in zip(mods, built):
+        log(f"built {mod.__name__} -> {path.relative_to(ROOT)}")
+        for line in ptxas.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+        mod.load()
     log(f"build: {time.perf_counter() - t0:.1f}s")
 
 
@@ -131,6 +142,73 @@ def phase_kernel_cases(torch, C, K, ref, report):
     return worst[main]
 
 
+def phase_contiguous_kernel_cases(torch, CC, K2, K3, R, report):
+    """Freeze-masked attention against its plain version on every case
+    (tolerance by dtype, relevance exactly 0 on inactive slots), the
+    skipped-block and dead-lane contracts, and the fused freeze update
+    against its plain version with exact equality on every case."""
+    from repro_torch.configs.base import FreezeConfig
+    from repro_torch.core.freeze import lane_tau
+    dev = torch.device("cuda")
+
+    def run(fn, inputs, dtype):
+        out, rel = fn(*CC.attn_args(inputs, dtype, dev))
+        torch.cuda.synchronize()
+        return out.float().cpu().numpy(), rel.cpu().numpy()
+
+    worst = {}
+    for case in CC.attn_cases():
+        out_k, rel_k = run(K2.freeze_decode_attention_cuda, case.inputs,
+                           case.dtype)
+        out_p, rel_p = run(R.freeze_decode_attention_ref, case.inputs,
+                           case.dtype)
+        np.testing.assert_allclose(out_k, out_p, err_msg=case.name,
+                                   **case.tols)
+        np.testing.assert_allclose(rel_k, rel_p, err_msg=case.name,
+                                   **case.tols)
+        np.testing.assert_array_equal(
+            rel_k[~case.inputs["active_mask"]], 0.0, case.name)
+        worst[case.name] = float(max(np.abs(out_k - out_p).max(),
+                                     np.abs(rel_k - rel_p).max()))
+        report.write(f"{case.name}: max|kernel - plain| = "
+                     f"{worst[case.name]:.3e} (rtol/atol "
+                     f"{case.tols['rtol']:g})\n")
+    x = CC.skipped_block_inputs()
+    out_k, rel_k = run(K2.freeze_decode_attention_cuda, x, "float32")
+    out_p, _ = run(R.freeze_decode_attention_ref, x, "float32")
+    np.testing.assert_allclose(out_k, out_p, **CC.TOLS["float32"])
+    np.testing.assert_array_equal(rel_k[:, 128:256], 0.0)
+    out_k, rel_k = run(K2.freeze_decode_attention_cuda, CC.dead_lane_inputs(),
+                       "float32")
+    np.testing.assert_array_equal(out_k[0], 0.0)
+    np.testing.assert_array_equal(rel_k[0], 0.0)
+    assert np.isfinite(out_k).all()
+    report.write("skipped_block: matches, relevance 0; dead_lane: zeros\n")
+    main = CC.main_path_case().name
+    n_exact = 0
+    for case in CC.freeze_cases():
+        cfg = FreezeConfig(**case.cfg)
+        state, rel, pos, step = CC.freeze_args(case, dev)
+        tau = lane_tau(state, rel, pos, cfg)
+        new_k, act_k = K3.relevance_freeze_cuda(state, rel, pos, step, tau,
+                                                cfg)
+        new_p, act_p = R.relevance_freeze_ref(state, rel, pos, step, tau,
+                                              cfg)
+        torch.cuda.synchronize()
+        for f in ("c", "d", "frozen", "frozen_at"):
+            a, b = getattr(new_k, f), getattr(new_p, f)
+            assert a.dtype == b.dtype and torch.equal(a, b), (case.name, f)
+        assert torch.equal(act_k, act_p), case.name
+        n_exact += 1
+        report.write(f"{case.name}: exact ({int(new_k.frozen.sum())} "
+                     f"frozen)\n")
+    log(f"contiguous kernel cases: {len(worst)} masked-attention tolerance "
+        f"cases + skipped block + dead lane passed, worst |kernel - plain| "
+        f"{max(worst.values()):.3e}, at the main-path shape "
+        f"{worst[main]:.3e}; {n_exact} freeze-update cases bit-exact")
+    return worst[main]
+
+
 PROFILE_STEPS = range(8, 13)     # pure decode steps of the profiled serve
 
 
@@ -149,7 +227,9 @@ def _fifo(torch, launcher, engine, requests, profile=None):
     window = {"ms": 0.0, "on": False}
 
     def timed():
-        pure = not engine.prefills and engine.n_active_lanes > 0
+        # the contiguous engine prefills inside admit(), outside step_once
+        pure = not getattr(engine, "prefills", None) \
+            and engine.n_active_lanes > 0
         i = len(step_ms)
         if prof is not None and pure and i == profile.start:
             prof.start()
@@ -174,7 +254,7 @@ def _fifo(torch, launcher, engine, requests, profile=None):
     return done, seconds, step_ms, prof, window["ms"]
 
 
-def _profile_summary(torch, prof, wall_ms, card_line):
+def _profile_summary(torch, prof, wall_ms, card_line, tag):
     """Device busy share and the kernels that take the device time."""
     n = len(PROFILE_STEPS)
     cuda_t = torch.autograd.DeviceType.CUDA
@@ -185,7 +265,7 @@ def _profile_summary(torch, prof, wall_ms, card_line):
     ops = sum(e.count for e in events
               if e.device_type != cuda_t and e.key.startswith("aten::"))
     busy_ms = sum(dev(e) for e in kernels) / 1e3
-    lines = [f"profile [{card_line}] over {n} pure decode steps "
+    lines = [f"profile {tag} [{card_line}] over {n} pure decode steps "
              f"({wall_ms / n:.2f} ms each): device busy {busy_ms / n:.2f} ms "
              f"a step = {100 * busy_ms / max(wall_ms, 1e-9):.1f}% "
              f"(idle {100 - 100 * busy_ms / max(wall_ms, 1e-9):.1f}%); "
@@ -194,7 +274,7 @@ def _profile_summary(torch, prof, wall_ms, card_line):
     for e in sorted(kernels, key=dev, reverse=True)[:10]:
         lines.append(f"  {dev(e) / 1e3 / n:8.3f} ms/step  {e.count // n:5d}x"
                      f"  {e.key[:90]}")
-    (OUT_DIR / "chip_smoke_profile.txt").write_text(
+    (OUT_DIR / f"chip_smoke_profile_{tag}.txt").write_text(
         "\n".join(lines) + "\n\n" + prof.key_averages().table(
             sort_by="self_cpu_time_total", row_limit=40))
     for line in lines:
@@ -274,6 +354,153 @@ def phase_reference(K, launcher, MD, engine_mod, cfg_mod):
             f"{g['rewinds']}, peak KV {g['peak_kv']} B on both")
 
 
+# card-vs-CPU traces of the contiguous engine (tiny model, f32, greedy):
+# freeze settings over the launcher's, prompt lengths, new tokens, serving
+CONTIGUOUS_TRACES = {
+    # tests/test_continuous.py:20-47's aggressive quantile freeze on 4
+    # lanes, spike-free: freezing fires and the offloader moves pages
+    "freeze_offload": dict(
+        freeze=dict(window=4, history=10**6, quantile=0.6, k_soft=1.0,
+                    page_size=8, entropy_abs_threshold=1e9,
+                    entropy_rel_factor=1e9),
+        prompts=(16,) * 8, n_toks=(64, 8, 8, 8, 32, 16, 8, 8),
+        serving=dict(max_seq=160, n_lanes=4)),
+    # entropy spikes escalate the ladder to rewinds
+    "recovery_rewind": dict(
+        freeze=dict(page_size=8, window=8, quantile=0.6, k_soft=0.7,
+                    entropy_abs_threshold=0.5, rewalk_tokens=6),
+        prompts=(48, 20), n_toks=(70, 50),
+        serving=dict(max_seq=256, n_lanes=2, rewind_cooldown=12)),
+}
+
+
+class _MarginRecorder:
+    """Wraps ``ops.freeze_state_update`` to record, per call, the smallest
+    nonzero |relevance - tau| over the eligible slots: how close a freeze
+    decision came to flipping (a slot equal to tau is the quantile's own
+    order statistic, not flagged on either side).  A card-vs-CPU
+    divergence is reported with it."""
+
+    def __init__(self, torch, ops, freeze):
+        self.torch, self.ops, self.freeze = torch, ops, freeze
+        self.orig = ops.freeze_state_update
+        self.margins = []
+
+    def __call__(self, state, rel, pos, step, cfg):
+        tau = self.freeze.lane_tau(state, rel, pos, cfg)
+        elig = self.freeze.eligible_mask(state, pos, cfg)
+        diff = (rel.float() - tau[:, None]).abs()
+        gap = self.torch.where(elig & (diff > 0), diff, float("inf"))
+        self.margins.append(gap.min())
+        return self.orig(state, rel, pos, step, cfg)
+
+    def __enter__(self):
+        self.ops.freeze_state_update = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.freeze_state_update = self.orig
+
+    def min_margin(self) -> float:
+        return float(min(m.item() for m in self.margins)) \
+            if self.margins else float("inf")
+
+
+def _first_divergence(a, b):
+    d = np.nonzero(np.asarray(a) != np.asarray(b))[0]
+    return int(d[0]) if len(d) else None
+
+
+def phase_contiguous_reference(torch, kernels, launcher, MD, engine_mod,
+                               cfg_mod):
+    """Tiny f32 model, greedy: ContinuousEngine on a freeze/offload trace
+    and a rewind trace, and Engine.generate, on the card (kernels) and on
+    the CPU (plain versions): identical tokens, rewinds and offload
+    counters, and none of the traces vacuous."""
+    from repro_torch.core import freeze as freeze_mod
+    from repro_torch.kernels import ops
+    base = launcher.launcher_config("llama3-8b", tiny=True)
+    for name, spec in CONTIGUOUS_TRACES.items():
+        cfg = dataclasses.replace(base, dtype="float32",
+                                  freeze=dataclasses.replace(
+                                      base.freeze, **spec["freeze"]))
+        params_cpu = MD.init_params(cfg, SEED, "cpu")
+        rng = np.random.RandomState(SEED)
+        prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in spec["prompts"]]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            params = _to_device(params_cpu, dev)
+            eng = engine_mod.ContinuousEngine(
+                cfg, params, cfg_mod.ServingConfig(**spec["serving"]),
+                device=dev)
+            reqs = [engine_mod.Request(u, p, n,
+                                       engine_mod.SamplingParams.greedy())
+                    for u, (p, n) in enumerate(zip(prompts,
+                                                   spec["n_toks"]))]
+            _reset_counts(kernels)
+            with _MarginRecorder(torch, ops, freeze_mod) as rec:
+                launcher.serve_fifo(eng, reqs)
+            off = eng.offloader
+            runs[dev] = dict(
+                tokens=[r.result for r in reqs], steps=eng.wall_step,
+                launched=_read_counts(kernels),
+                rewinds=[r.telemetry.rewinds for r in reqs],
+                frozen=[r.telemetry.frozen_kv for r in reqs],
+                counters=(off.n_offloads, off.n_restores),
+                margin=rec.min_margin())
+        g, c = runs["cuda"], runs["cpu"]
+        for u, (a, b) in enumerate(zip(g["tokens"], c["tokens"])):
+            i = _first_divergence(a, b)
+            assert i is None, (
+                f"{name} request {u}: card and CPU tokens diverge at "
+                f"generated token {i}; smallest |relevance - tau| margin "
+                f"card {g['margin']:.3e}, CPU {c['margin']:.3e}")
+        for key in ("steps", "rewinds", "frozen", "counters"):
+            assert g[key] == c[key], (name, key, g[key], c[key])
+        n = g["steps"] * cfg.num_layers
+        assert g["launched"]["freeze_decode_attention"] == n, (g["launched"], n)
+        assert g["launched"]["relevance_freeze_update"] == n
+        assert not any(c["launched"].values()), c["launched"]
+        assert max(max(f) for f in g["frozen"]) > 0, name
+        if name == "freeze_offload":
+            assert g["counters"][0] > 0, g["counters"]
+        else:
+            assert sum(g["rewinds"]) > 0, g["rewinds"]
+        log(f"reference contiguous {name}: tiny f32 greedy, "
+            f"{len(prompts)} requests, {g['steps']} steps: card (kernels) "
+            f"== CPU (plain) tokens, offloads {g['counters'][0]} out / "
+            f"{g['counters'][1]} restored, rewinds {g['rewinds']}; closest "
+            f"freeze decision |relevance - tau| {g['margin']:.3e}")
+    # Engine.generate (the Table-1 protocol) at tiny width
+    cfg = dataclasses.replace(base, dtype="float32", freeze=dataclasses.
+                              replace(base.freeze, page_size=4))
+    params_cpu = MD.init_params(cfg, SEED, "cpu")
+    prompt = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 14))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = engine_mod.Engine(cfg, _to_device(params_cpu, dev), max_seq=80,
+                                device=dev)
+        with _MarginRecorder(torch, ops, freeze_mod) as rec:
+            res = eng.generate({"tokens": prompt}, 60,
+                               engine_mod.SamplingParams.greedy())
+        out[dev] = (res, eng.offloader, rec.min_margin())
+    (rg, og, mg), (rc, oc, mc) = out["cuda"], out["cpu"]
+    for lane in range(2):
+        i = _first_divergence(rg.tokens[lane], rc.tokens[lane])
+        assert i is None, (f"Engine.generate lane {lane}: tokens diverge at "
+                           f"{i}; margin card {mg:.3e}, CPU {mc:.3e}")
+    for key in ("active_kv", "frozen_kv", "offloaded_tokens", "rewinds"):
+        assert getattr(rg, key) == getattr(rc, key), key
+    assert (og.n_offloads, og.n_restores) == (oc.n_offloads, oc.n_restores)
+    assert rg.compression > 0 and og.n_offloads > 0, (rg.compression,
+                                                      og.n_offloads)
+    log(f"reference Engine.generate: tiny f32 greedy, 2 lanes x 60 tokens: "
+        f"card == CPU tokens and telemetry, compression "
+        f"{100 * rg.compression:.2f}%, offloads {og.n_offloads} out / "
+        f"{og.n_restores} restored")
+
+
 def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
@@ -289,62 +516,161 @@ def _requests(engine_mod, cfg, rng, uids, new_tokens):
         for u in uids]
 
 
-def phase_main_path(torch, K, launcher, MD, engine_mod, cfg_mod, card_line):
+def _reset_counts(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def _read_counts(kernels):
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def _full_width_config(launcher):
     cfg = launcher.launcher_config("llama3-8b", tiny=False)
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype) == \
         (32, 4096, 32, 8, 128, 14336, 128256, "bfloat16"), cfg
-    t0 = time.perf_counter()
-    params = MD.init_params(cfg, SEED, "cuda")
-    torch.cuda.synchronize()
-    n_params = MD.param_count(params)
-    log(f"main path: llama3-8b {n_params / 1e9:.2f}B params bf16 made on "
-        f"the card in {time.perf_counter() - t0:.1f}s")
-    sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, max_active_pages=8,
-                               prefill_chunk=256, seed=SEED)
-    engine = engine_mod.PagedContinuousEngine(cfg, params, sv, device="cuda")
+    return cfg
+
+
+def _serve_main(torch, launcher, engine_mod, cfg, engine, kernels):
+    """Serve the main path's 8 requests on ``engine`` with no profiler,
+    the launch counts zeroed just before and read just after, and check
+    what comes out.  Returns (done, counts, timing line, decode steps)."""
     rng = np.random.RandomState(SEED)
     reqs = _requests(engine_mod, cfg, rng, range(8), 128)
     torch.cuda.reset_peak_memory_stats()
-    K.paged_decode_attention_cuda.launches = 0
+    _reset_counts(kernels)
     done, seconds, step_ms, _, _ = _fifo(torch, launcher, engine, reqs)
-    launches = K.paged_decode_attention_cuda.launches
-    steps = engine.wall_step
-    ctl = engine.ctl
+    counts = _read_counts(kernels)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     assert len(done) == 8 and all(len(r.result) == 128 for r in done)
     assert all(0 <= int(t) < cfg.vocab_size for r in done for t in r.result)
+    assert all(np.isfinite(r.telemetry.entropy).all() for r in done)
+    for line in launcher.summary_lines(engine, done, seconds, 4):
+        log(f"  {line}")
+    tokens = sum(len(r.result) for r in done)
+    half = len(step_ms) // 2
+    timing = (f"decode step median {statistics.median(step_ms):.2f} ms over "
+              f"{len(step_ms)} steps (4 lanes; first half "
+              f"{statistics.median(step_ms[:half]):.2f} ms, second half "
+              f"{statistics.median(step_ms[half:]):.2f} ms); "
+              f"{tokens / seconds:.1f} tokens/s end to end incl. prefill "
+              f"({tokens} tokens in {seconds:.2f} s); max_memory_allocated "
+              f"{peak_gib:.2f} GiB; kv_device_bytes {engine.kv_device_bytes}")
+    return done, counts, timing, engine.wall_step
+
+
+def _profile_serve(torch, launcher, engine_mod, cfg, engine, card_line, tag):
+    """A second, short serve on the same engine under ``torch.profiler``,
+    so the profiler's overhead stays out of the timed numbers."""
+    rng = np.random.RandomState(SEED + 1)
+    reqs = _requests(engine_mod, cfg, rng, range(8, 12), 48)
+    _, _, steps, prof, prof_ms = _fifo(torch, launcher, engine, reqs,
+                                       PROFILE_STEPS)
+    assert len(steps) > PROFILE_STEPS[-1], len(steps)
+    _profile_summary(torch, prof, prof_ms, card_line, tag)
+
+
+def phase_main_path(torch, kernels, launcher, engine_mod, cfg_mod, params,
+                    card_line):
+    """The paged path: PagedContinuousEngine at full width."""
+    cfg = _full_width_config(launcher)
+    sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, max_active_pages=8,
+                               prefill_chunk=256, seed=SEED)
+    engine = engine_mod.PagedContinuousEngine(cfg, params, sv, device="cuda")
+    done, counts, timing, steps = _serve_main(torch, launcher, engine_mod,
+                                              cfg, engine, kernels)
+    launches, ctl = counts["paged_decode_attention"], engine.ctl
     assert launches == steps * cfg.num_layers, (launches, steps)
+    assert counts["freeze_decode_attention"] == 0 and \
+        counts["relevance_freeze_update"] == 0, counts
     assert ctl.n_swap_out > 0 and ctl.n_swap_in > 0
     peak_active = max(max(r.telemetry.active_kv) for r in done)
     assert peak_active <= 8 * 64, peak_active
     assert not ctl.store and not ctl.frozen_meta
-    assert all(np.isfinite(r.telemetry.entropy).all() for r in done)
-    tokens = sum(len(r.result) for r in done)
-    rewinds = sum(r.telemetry.rewinds for r in done)
-    for line in launcher.summary_lines(engine, done, seconds, 4):
-        log(f"  {line}")
-    half = len(step_ms) // 2
-    log(f"main path [{card_line}], no profiler: {steps} decode steps, "
-        f"{launches} kernel launches (= steps x 32); pure decode step "
-        f"median {statistics.median(step_ms):.2f} ms over {len(step_ms)} "
-        f"steps (4 lanes; first half {statistics.median(step_ms[:half]):.2f}"
-        f" ms, second half {statistics.median(step_ms[half:]):.2f} ms); "
-        f"{tokens / seconds:.1f} tokens/s end to end incl. prefill "
-        f"({tokens} tokens in {seconds:.2f} s); max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"kv_device_bytes {engine.kv_device_bytes}; peak per-lane active KV "
-        f"{peak_active:.0f} slots; swaps {ctl.n_swap_out} out / "
-        f"{ctl.n_swap_in} in / {ctl.n_thaw} thawed; {rewinds} rewinds")
-    # the profile comes from a second, short serve on the same engine, so
-    # the profiler's overhead stays out of the numbers above
-    prof_reqs = _requests(engine_mod, cfg, rng, range(8, 12), 48)
-    _, _, prof_steps, prof, prof_ms = _fifo(torch, launcher, engine,
-                                            prof_reqs, PROFILE_STEPS)
-    assert len(prof_steps) > PROFILE_STEPS[-1], len(prof_steps)
-    _profile_summary(torch, prof, prof_ms, card_line)
-    del params, engine
+    log(f"main path paged [{card_line}], no profiler: {steps} decode steps, "
+        f"{launches} kernel launches (= steps x 32); pure {timing}; peak "
+        f"per-lane active KV {peak_active:.0f} slots; swaps {ctl.n_swap_out} "
+        f"out / {ctl.n_swap_in} in / {ctl.n_thaw} thawed; "
+        f"{sum(r.telemetry.rewinds for r in done)} rewinds")
+    _profile_serve(torch, launcher, engine_mod, cfg, engine, card_line,
+                   "paged")
+    del engine
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_contiguous_main_path(torch, kernels, launcher, engine_mod,
+                               cfg_mod, params, card_line):
+    """Main path 2: ContinuousEngine at full width with the launcher's
+    freeze settings, host offload and recovery."""
+    cfg = _full_width_config(launcher)
+    sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, seed=SEED)
+    engine = engine_mod.ContinuousEngine(cfg, params, sv, device="cuda")
+    done, counts, timing, steps = _serve_main(torch, launcher, engine_mod,
+                                              cfg, engine, kernels)
+    off = engine.offloader
+    for name in ("freeze_decode_attention", "relevance_freeze_update"):
+        assert counts[name] == steps * cfg.num_layers, (name, counts, steps)
+    assert counts["paged_decode_attention"] == 0, counts
+    assert off.n_offloads > 0, off.n_offloads
+    frozen = max(max(r.telemetry.frozen_kv) for r in done)
+    log(f"main path contiguous [{card_line}], no profiler: {steps} decode "
+        f"steps, {counts['freeze_decode_attention']} masked-attention and "
+        f"{counts['relevance_freeze_update']} freeze-update launches (each = "
+        f"steps x 32); {timing}; peak frozen KV {frozen:.1f} slots a layer; "
+        f"offloads {off.n_offloads} out / {off.n_restores} restored, "
+        f"{off.moved_bytes} bytes moved (D2H {engine.stats.d2h_bytes} B "
+        f"incl. the per-step fetch); "
+        f"{sum(r.telemetry.rewinds for r in done)} rewinds")
+    _profile_serve(torch, launcher, engine_mod, cfg, engine, card_line,
+                   "contiguous")
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_table1(torch, kernels, launcher, engine_mod, params, card_line):
+    """The paper's Table-1 protocol through Engine.generate at full width:
+    benchmarks/common.py's freeze settings, a 14-token random prompt, 500
+    new tokens, max_seq 560, temperature 0.7; freeze off, then on.  The
+    weights are random, so the compression is not the paper's."""
+    cfg = _full_width_config(launcher)
+    cfg = dataclasses.replace(cfg, freeze=dataclasses.replace(
+        cfg.freeze, window=16, tau_mode="quantile", quantile=0.45,
+        k_soft=1.0, page_size=16, recovery_enabled=True,
+        entropy_abs_threshold=1e9))
+    prompt = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, 14))
+    rows = {}
+    for label, freeze in (("baseline", False), ("asr_kf_egr", True)):
+        eng = engine_mod.Engine(cfg, params, max_seq=560,
+                                enable_freeze=freeze, device="cuda")
+        _reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.generate({"tokens": prompt}, 500,
+                           engine_mod.SamplingParams(temperature=0.7),
+                           seed=SEED)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _read_counts(kernels)
+        steps = len(res.total_kv)
+        assert res.tokens.shape == (1, 500), res.tokens.shape
+        assert counts["freeze_decode_attention"] == steps * cfg.num_layers
+        assert counts["relevance_freeze_update"] == \
+            (steps * cfg.num_layers if freeze else 0), counts
+        assert np.isfinite(res.entropy).all()
+        rows[label] = res
+        off = eng.offloader
+        log(f"table1 {label} [{card_line}]: total_kv[-1] {res.total_kv[-1]}"
+            f", active_kv[-1] {res.active_kv[-1]:.2f}, compression "
+            f"{100 * res.compression:.2f}%, {dt:.2f} s for 500 tokens "
+            f"({steps} decode steps, {res.rewinds} rewinds"
+            + (f", offloads {off.n_offloads} out / {off.n_restores} "
+               f"restored" if off is not None else "") + ")")
+    assert rows["baseline"].compression == 0.0
+    assert rows["asr_kf_egr"].compression > 0.0
 
 
 def _eager_ms(torch, fn, iters):
@@ -465,44 +791,146 @@ def phase_timing(torch, C, K, ref, card_line):
         "operations", lib_ms
 
 
+def phase_contiguous_timing(torch, CC, K2, K3, R, card_line):
+    """Kernels 2 and 3 at the contiguous main path's shape: device time per
+    call by CUDA-graph replay, bound, plain version, library yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import FreezeConfig
+    from repro_torch.core.freeze import lane_tau
+    case = CC.main_path_case()
+    q, k, v, mask = CC.attn_args(case.inputs, case.dtype, "cuda")
+    B, S, H, KVH, hd = CC.MAIN_PATH_SHAPE
+    G = H // KVH
+    n_copies = 12       # rotated so each launch reads K/V from HBM
+    kv = [(k.clone(), v.clone()) for _ in range(n_copies)]
+
+    def kernel(i):
+        K2.freeze_decode_attention_cuda(q, *kv[i % n_copies], mask)
+
+    def plain(i):
+        R.freeze_decode_attention_ref(q, *kv[i % n_copies], mask)
+
+    ms = _graph_ms(torch, kernel, n_copies)
+    plain_ms = _graph_ms(torch, plain, n_copies)
+    # bound: q; K and V of the active slots only; the mask; out and
+    # relevance — over HBM bandwidth; ops: 4 * H * hd per active slot
+    active = int(case.inputs["active_mask"].sum())
+    elem = 2                                               # bf16
+    nbytes = (B * H * hd * elem + active * KVH * hd * elem * 2 + B * S
+              + B * H * hd * elem + B * S * 4)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 4 * H * hd * active / BF16_FLOPS_PER_S
+    bound2 = max(bytes_ms, ops_ms)
+    # library yardstick: SDPA with a boolean mask over the GQA-expanded
+    # cache (it computes no relevance)
+    exp = [(kk.repeat_interleave(G, dim=2).transpose(1, 2).contiguous(),
+            vv.repeat_interleave(G, dim=2).transpose(1, 2).contiguous())
+           for kk, vv in kv]
+    qq, am = q[:, :, None, :], mask[:, None, None, :]
+    lib_ms = _graph_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qq, *exp[i % n_copies], attn_mask=am), n_copies)
+    del exp, kv
+    log(f"timing freeze_decode_attention [{card_line}] at B={B} S={S} H={H} "
+        f"KVH={KVH} hd={hd} bf16, {active} of {B * S} slots active: kernel "
+        f"{ms:.4f} ms, bound {bound2:.4f} ms (bytes {nbytes}: "
+        f"{bytes_ms:.4f} ms; ops {ops_ms:.5f} ms) = "
+        f"{100 * bound2 / ms:.1f}% of the published peak, plain "
+        f"{plain_ms:.4f} ms, SDPA with a boolean mask over the GQA-expanded "
+        f"cache (no relevance) {lib_ms:.4f} ms")
+    k2 = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound2,
+              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+              library_ms=lib_ms)
+
+    fcase = [c for c in CC.freeze_cases() if c.name.startswith("main-path")][0]
+    cfg = FreezeConfig(**fcase.cfg)
+    state, rel, pos, step = CC.freeze_args(fcase, "cuda")
+    tau = lane_tau(state, rel, pos, cfg)
+    fB, fS = rel.shape
+    ms3 = _graph_ms(torch, lambda i: K3.relevance_freeze_cuda(
+        state, rel, pos, step, tau, cfg), n_copies)
+    plain3 = _graph_ms(torch, lambda i: R.relevance_freeze_ref(
+        state, rel, pos, step, tau, cfg), n_copies)
+    # bound: c, d, frozen_at, relevance (4 B) and frozen (1 B) read; c, d,
+    # frozen_at (4 B), frozen and active (1 B) written; pos, step, tau
+    nbytes3 = fB * fS * (17 + 14) + fB * 12
+    bound3 = 1e3 * nbytes3 / HBM_BYTES_PER_S
+    log(f"timing relevance_freeze_update [{card_line}] at B={fB} S={fS}: "
+        f"kernel {ms3:.4f} ms, bound {bound3:.5f} ms (bytes {nbytes3}) = "
+        f"{100 * bound3 / ms3:.1f}% of the published peak, plain "
+        f"{plain3:.4f} ms; no single PyTorch call computes it")
+    k3 = dict(ms=ms3, plain_ms=plain3, bound_ms=bound3, bound_by="bytes",
+              library_ms=None)
+    return k2, k3
+
+
 def main() -> int:
     name, count, card_line = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.kernels import cases as C
+    from repro_torch.kernels import contiguous_cases as CC
+    from repro_torch.kernels import freeze_decode_attn as K2
     from repro_torch.kernels import paged_decode_attn as K
-    from repro_torch.kernels.ref import paged_decode_attention_ref as ref
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import relevance_freeze as K3
     from repro_torch.launch import serve as launcher
     from repro_torch.models import model as MD
     from repro_torch.serving import config as cfg_mod
     from repro_torch.serving import engine as engine_mod
 
-    phase_build(K)
+    kernels = {"paged_decode_attention": K.paged_decode_attention_cuda,
+               "freeze_decode_attention": K2.freeze_decode_attention_cuda,
+               "relevance_freeze_update": K3.relevance_freeze_cuda}
+    t_start = time.perf_counter()
+    phase_build((K, K2, K3))
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke_cases.txt", "w") as report:
         report.write(f"{card_line}\n")
-        err = phase_kernel_cases(torch, C, K, ref, report)
+        err = phase_kernel_cases(torch, C, K, R.paged_decode_attention_ref,
+                                 report)
+        err2 = phase_contiguous_kernel_cases(torch, CC, K2, K3, R, report)
     phase_reference(K, launcher, MD, engine_mod, cfg_mod)
-    launches = phase_main_path(torch, K, launcher, MD, engine_mod, cfg_mod,
-                               card_line)
+    phase_contiguous_reference(torch, kernels, launcher, MD, engine_mod,
+                               cfg_mod)
+    cfg = _full_width_config(launcher)
+    t0 = time.perf_counter()
+    params = MD.init_params(cfg, SEED, "cuda")
+    torch.cuda.synchronize()
+    log(f"main paths: llama3-8b {MD.param_count(params) / 1e9:.2f}B params "
+        f"bf16 made on the card in {time.perf_counter() - t0:.1f}s")
+    launches = phase_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
+                               params, card_line)
+    counts = phase_contiguous_main_path(torch, kernels, launcher, engine_mod,
+                                        cfg_mod, params, card_line)
+    phase_table1(torch, kernels, launcher, engine_mod, params, card_line)
+    del params
+    torch.cuda.empty_cache()
     ms, plain_ms, bound_ms, bound_by, lib_ms = phase_timing(
-        torch, C, K, ref, card_line)
-    kernels = {"kernels": [{
-        "name": "paged_decode_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
-        "replaces": "src/repro/kernels/paged_decode_attn.py:117",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": lib_ms,
-    }]}
+        torch, C, K, R.paged_decode_attention_ref, card_line)
+    k2, k3 = phase_contiguous_timing(torch, CC, K2, K3, R, card_line)
+    rows = [
+        dict(name="paged_decode_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/paged_decode_attn.cu",
+             replaces="src/repro/kernels/paged_decode_attn.py:117",
+             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms),
+        dict(name="freeze_decode_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/freeze_decode_attn.cu",
+             replaces="src/repro/kernels/freeze_decode_attn.py:93",
+             launches=counts["freeze_decode_attention"], max_abs_err=err2,
+             **k2),
+        dict(name="relevance_freeze_update", route="cuda",
+             source="src/repro_torch/kernels/csrc/relevance_freeze.cu",
+             replaces="src/repro/kernels/relevance_freeze.py:66",
+             launches=counts["relevance_freeze_update"], max_abs_err=0.0,
+             **k3),
+    ]
+    kernels_line = {"kernels": rows}
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
-        json.dump(dict(kernels, card=card_line), f, indent=1)
-    print(json.dumps(kernels), flush=True)
+        json.dump(dict(kernels_line, card=card_line), f, indent=1)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s after the device "
+        f"check")
+    print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
     return 0

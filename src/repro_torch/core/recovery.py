@@ -1,11 +1,15 @@
-"""Entropy-guided recovery on page-granular freeze state (PyTorch
-counterpart of ``repro.core.recovery``, paper §3.6).
+"""Entropy-guided recovery (PyTorch counterpart of ``repro.core.recovery``,
+paper §3.6).
 
 A per-lane escalation ladder SR -> WR -> FR -> RR is driven by output
 entropy; a spike escalates one level and applies that level's intervention,
-sustained calm de-escalates.  FR raises ``thaw_request`` (the host
-``PagedController`` brings stashed pages home at the lane's next page
-boundary) and RR raises ``rr_request`` (the engine's page-aware rewind).
+sustained calm de-escalates.  Two freeze granularities share the ladder
+(``_ladder_step``): ``recovery_update`` acts on token-granular
+``FreezeState`` (the contiguous engines) and ``page_recovery_update`` on
+``PageFreezeState`` (the paged engine), where FR also raises
+``thaw_request`` (the host ``PagedController`` brings stashed pages home at
+the lane's next page boundary).  RR raises ``rr_request``: the engine
+performs the rewind.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FreezeConfig
+from repro_torch.core.freeze import (FreezeState, full_reset, soft_reset,
+                                     window_reset)
 
 # ladder levels
 CALM, SR, WR, FR, RR = 0, 1, 2, 3, 4
@@ -31,6 +37,15 @@ def init_recovery_state(batch: int, device=None) -> RecoveryState:
     z = lambda dt: torch.zeros((batch,), dtype=dt, device=device)
     return RecoveryState(ema_entropy=z(torch.float32), level=z(torch.int32),
                          calm_steps=z(torch.int32), steps_seen=z(torch.int32))
+
+
+def reset_lane(rec: RecoveryState, lane) -> RecoveryState:
+    """Lane-granular reset: a retiring request's entropy baseline and
+    escalation level must not carry over to the lane's next occupant."""
+    sel = torch.arange(rec.level.shape[0], device=rec.level.device) \
+        == int(lane)
+    return RecoveryState(*(torch.where(sel, torch.zeros_like(a), a)
+                           for a in rec))
 
 
 def token_entropy(logits: torch.Tensor) -> torch.Tensor:
@@ -76,6 +91,24 @@ def _ladder_step(rec: RecoveryState, logits: torch.Tensor,
     info = {"entropy": ent, "spike": spike, "level": level,
             "rr_request": rr_request, "ema_entropy": rec.ema_entropy}
     return new, spike, level, info
+
+
+def recovery_update(
+    rec: RecoveryState,
+    freeze: FreezeState,            # stacked (L, B, S) or flat (B, S)
+    logits: torch.Tensor,           # (B, V)
+    step,                           # () or (B,) decode clock
+    cfg: FreezeConfig,
+) -> Tuple[RecoveryState, FreezeState, dict]:
+    """Entropy ladder over token-granular freeze state: SR un-freezes the
+    long-frozen slots, WR those frozen within ``recovery_window`` steps,
+    FR (and RR, which also requests a rewind) clears the lane's state."""
+    new, spike, level, info = _ladder_step(rec, logits, cfg)
+    freeze = soft_reset(freeze, spike & (level == SR))
+    freeze = window_reset(freeze, spike & (level == WR), step,
+                          cfg.recovery_window)
+    freeze = full_reset(freeze, spike & (level >= FR))
+    return new, freeze, info
 
 
 def page_recovery_update(

@@ -1,13 +1,17 @@
-"""Plain PyTorch version of the paged decode-attention kernel: a
-transliteration of ``repro.core.paging.paged_decode_attention``.  The CPU
-path runs it, the tests hold it against the JAX reference and the Pallas
-kernel, and the chip smoke holds the CUDA kernel against it."""
+"""Plain PyTorch versions of the three hand-written kernels (counterpart
+of ``repro.kernels.ref``).  The CPU path runs them, the tests hold them
+against the JAX reference and the Pallas kernels, and the chip smoke holds
+each CUDA kernel against its plain version."""
 from __future__ import annotations
 
 import math
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.configs.base import FreezeConfig
+from repro_torch.core.freeze import FreezeState, freeze_update_with_tau
+from repro_torch.models.layers import decode_attention
 
 
 def paged_decode_attention_ref(
@@ -61,3 +65,23 @@ def paged_decode_attention_ref(
     vf = vf_pages.reshape(B, P * page, KVH, hd)
     out = torch.einsum("bkgs,bskh->bkgh", p, vf)
     return out.reshape(B, H, hd).to(q.dtype), page_rel
+
+
+def freeze_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, active_mask: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out (B, H, hd), relevance (B, S) f32): ``layers.decode_attention``
+    with inactive slots reporting relevance exactly 0 (their K/V is frozen
+    or unwritten, so their |q.k| must never reach the freeze schedule)."""
+    out, rel = decode_attention(q, k, v, active_mask)
+    return out, torch.where(active_mask, rel,
+                            torch.zeros((), device=rel.device)).float()
+
+
+def relevance_freeze_ref(state: FreezeState, relevance: torch.Tensor, pos,
+                         step, tau: torch.Tensor, cfg: FreezeConfig
+                         ) -> Tuple[FreezeState, torch.Tensor]:
+    """(new FreezeState, active (B, S) bool): ``freeze_update`` with the
+    per-lane threshold ``tau`` (B,) given and scalar or (B,) clocks."""
+    new, info = freeze_update_with_tau(state, relevance, pos, step, tau, cfg)
+    return new, info["active"]

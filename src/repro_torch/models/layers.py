@@ -129,6 +129,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, active_mask: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-step decode attention over a (frozen-masked) contiguous cache:
+    q (B, H, hd), k/v (B, S, KVH, hd), active_mask (B, S) bool.
+
+    Returns (out (B, H, hd) in q's dtype, relevance (B, S) f32), relevance
+    being the paper's Eq. 2 score (1/H) sum_h |q_h . k_jh| on every slot.
+    Scores are taken in f32; as in the reference the probabilities are
+    cast to the cache dtype before P.V, and a row with nothing active
+    gives zeros."""
+    B, H, hd = q.shape
+    _, S, KVH, _ = k_cache.shape
+    G = H // KVH
+    qf = q.reshape(B, KVH, G, hd).float()
+    raw = torch.einsum("bkgh,bskh->bkgs", qf, k_cache.float())   # (B,KVH,G,S)
+    relevance = torch.mean(torch.abs(raw), dim=(1, 2))
+    s = raw / math.sqrt(hd)
+    s = torch.where(active_mask[:, None, None, :], s,
+                    torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    any_active = torch.any(active_mask, dim=-1)[:, None, None, None]
+    p = torch.where(any_active, p, torch.zeros((), device=q.device))
+    out = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, H, hd).to(q.dtype), relevance
+
+
 # ===================================================================== #
 # GQA attention module
 # ===================================================================== #

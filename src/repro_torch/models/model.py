@@ -27,6 +27,28 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     return T.init_decode_state(cfg, batch, max_seq, device)
 
 
+def prefill(params, cfg: ModelConfig, batch, state):
+    """Whole-prompt prefill: ``batch["tokens"]`` (B, S) from position 0.
+    Returns (last-token logits, filled state)."""
+    _decoder_only(cfg)
+    return T.lm_prefill(params, cfg, batch["tokens"], state)
+
+
+def decode_step(params, cfg: ModelConfig, token, pos, step, state,
+                freeze_cfg=None, enable_freeze: bool = True):
+    """One contiguous decode step; returns (logits, state, info)."""
+    _decoder_only(cfg)
+    return T.lm_decode_step(params, cfg, token, pos, step, state,
+                            freeze_cfg, enable_freeze)
+
+
+def write_lane_state(cfg: ModelConfig, state, lane_state, lane):
+    """Copy a single-lane decode state into batch lane ``lane`` (in place)
+    — continuous-batching admission."""
+    _decoder_only(cfg)
+    return T.write_lane_state(state, lane_state, lane)
+
+
 def prefill_chunk(params, cfg: ModelConfig, tokens, state, pos0):
     """Chunked prefill: one prompt chunk at positions pos0.., writing its
     K/V into the contiguous scratch cache.  Returns (logits, state)."""

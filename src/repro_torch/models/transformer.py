@@ -1,13 +1,15 @@
 """Decoder-only LM for attention-only dense stacks (PyTorch counterpart of
-``repro.models.transformer``): embedding, chunked prefill into a
-contiguous scratch cache, and the paged decode step of the serving engine.
+``repro.models.transformer``): embedding, prefill (whole prompt or
+chunked) into a contiguous cache, the contiguous decode step of the
+static and continuous engines, and the paged decode step.
 
 Parameters keep ``repro``'s stacked layout: ``params["blocks"]["l0"]``
 holds every layer's tensors with a leading layer dim, and the layer scan of
 the reference is a Python loop here.  Decode integrates ASR-KF-EGR per
-attention layer: the paged kernel's |Q.K| products double as the page
-relevance feeding the page-granular freeze schedule, and entropy-guided
-recovery runs on the final logits.
+attention layer: the attention kernel's |Q.K| products double as the
+relevance feeding the freeze schedule (token-granular on the contiguous
+path, page-granular on the paged one), and entropy-guided recovery runs on
+the final logits.  Caches and freeze counters are updated IN PLACE.
 """
 from __future__ import annotations
 
@@ -17,10 +19,12 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import FreezeConfig, ModelConfig
+from repro_torch.core.freeze import FreezeState, init_freeze_state
 from repro_torch.core.paging import (PageFreezeState, init_page_freeze_state,
                                      page_freeze_update, write_tail)
 from repro_torch.core.recovery import (RecoveryState, init_recovery_state,
-                                       page_recovery_update)
+                                       page_recovery_update,
+                                       recovery_update)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import layers as L
@@ -109,21 +113,67 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- #
-# Chunked prefill into a contiguous scratch cache
+# Contiguous decode state and prefill
 # --------------------------------------------------------------------- #
 class DecodeState(NamedTuple):
-    """Prefill scratch: contiguous caches (L_attn, B, S, KVH, hd)."""
-    cache_k: torch.Tensor
+    """Everything the contiguous decode step carries between tokens, stacked
+    over attention layers.  The paged engine's chunked admission uses a
+    single-lane one as its prefill scratch."""
+    cache_k: torch.Tensor      # (L_attn, B, S, KVH, hd)
     cache_v: torch.Tensor
+    freeze: FreezeState        # tensors (L_attn, B, S)
+    recovery: RecoveryState
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device=None) -> DecodeState:
     dt = L.torch_dtype(cfg.dtype)
-    shape = (attn_layer_count(cfg), batch, max_seq,
-             max(cfg.num_kv_heads, 1), cfg.head_dim)
+    la = attn_layer_count(cfg)
+    shape = (la, batch, max_seq, max(cfg.num_kv_heads, 1), cfg.head_dim)
+    fz = init_freeze_state(batch, max_seq, device)
+    fz = FreezeState(*(a.expand((max(la, 1),) + a.shape).contiguous()
+                       for a in fz))
     return DecodeState(cache_k=torch.zeros(shape, dtype=dt, device=device),
-                       cache_v=torch.zeros(shape, dtype=dt, device=device))
+                       cache_v=torch.zeros(shape, dtype=dt, device=device),
+                       freeze=fz,
+                       recovery=init_recovery_state(batch, device))
+
+
+def write_lane_state(state: DecodeState, lane_state: DecodeState,
+                     lane: int) -> DecodeState:
+    """Copy a single-lane (B=1) state into batch lane ``lane`` IN PLACE —
+    the continuous-batching admission path.  The lane's KV cache, freeze
+    counters and recovery ladder are overwritten wholesale, so admitting a
+    freshly prefilled lane doubles as the lane-granular reset."""
+    state.cache_k[:, lane].copy_(lane_state.cache_k[:, 0])
+    state.cache_v[:, lane].copy_(lane_state.cache_v[:, 0])
+    for dst, src in zip(state.freeze, lane_state.freeze):
+        dst[:, lane].copy_(src[:, 0])
+    for dst, src in zip(state.recovery, lane_state.recovery):
+        dst[lane].copy_(src[0])
+    return state
+
+
+def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+               state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
+    """Process the prompt ``tokens`` (B, S) from position 0, attending
+    causally within it, and write its K/V into the cache IN PLACE (prefill
+    tokens start unfrozen).  Returns (last-token logits (B, V), state)."""
+    B, S = tokens.shape
+    x = embed(params, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device)
+    for l in range(cfg.num_layers):
+        lp = layer_params(params, l)
+        xn = L.rms_norm(x, lp["norm1"] + 1.0, cfg.norm_eps)
+        q, k, v = L.attention_qkv(lp["attn"], xn, positions, cfg.rope_theta)
+        o = L.flash_attention(q, k, v, causal=True)
+        x = x + L.attention_out(lp["attn"], o)
+        state.cache_k[l, :, :S] = k.to(state.cache_k.dtype)
+        state.cache_v[l, :, :S] = v.to(state.cache_v.dtype)
+        xn2 = L.rms_norm(x, lp["norm2"] + 1.0, cfg.norm_eps)
+        x = x + L.mlp_forward(lp["ffn"], xn2)
+    xl = L.rms_norm(x[:, -1], params["final_norm"] + 1.0, cfg.norm_eps)
+    return unembed(params, cfg, xl), state
 
 
 def lm_prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -150,6 +200,78 @@ def lm_prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + L.mlp_forward(lp["ffn"], xn2)
     xl = L.rms_norm(x[:, -1], params["final_norm"] + 1.0, cfg.norm_eps)
     return unembed(params, cfg, xl), state
+
+
+# --------------------------------------------------------------------- #
+# Decode step (contiguous cache + ASR-KF-EGR)
+# --------------------------------------------------------------------- #
+def lm_decode_step(
+    params, cfg: ModelConfig,
+    token: torch.Tensor,           # (B,)
+    pos,                           # () or (B,) slot of this token
+    step,                          # () or (B,) decode step counter
+    state: DecodeState,
+    freeze_cfg: Optional[FreezeConfig] = None,
+    enable_freeze: bool = True,
+) -> Tuple[torch.Tensor, DecodeState, Dict[str, torch.Tensor]]:
+    """One ASR-KF-EGR decode step (Algorithm 1 + recovery) over the
+    contiguous cache.  ``pos``/``step`` may be per-lane (B,) clocks
+    (continuous batching) or scalars (static batching).
+
+    Each layer writes its new K/V at ``pos`` and runs the freeze-masked
+    attention kernel (``ops.masked_decode_attention``), whose relevance
+    feeds the fused freeze update (``ops.freeze_state_update``); the cache
+    and the freeze counters are updated IN PLACE.  Recovery runs on the
+    logits.  Returns (logits (B, V), state, info)."""
+    fcfg = freeze_cfg or cfg.freeze
+    B = token.shape[0]
+    dev = token.device
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    step = torch.as_tensor(step, dtype=torch.int32, device=dev)
+    per_lane = pos.dim() == 1
+    Smax = state.cache_k.shape[2]
+    x = embed(params, cfg, token)
+    positions = pos[:, None] if per_lane else pos.expand(B, 1)
+    lanes = torch.arange(B, device=dev)
+    slot = pos.long() if per_lane else pos.long().expand(B)
+    exists = torch.arange(Smax, device=dev)[None, :] <= \
+        (pos[:, None] if per_lane else pos)
+    act_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    for l in range(cfg.num_layers):
+        lp = layer_params(params, l)
+        xn = L.rms_norm(x, lp["norm1"] + 1.0, cfg.norm_eps)
+        q, k, v = L.attention_qkv(lp["attn"], xn[:, None], positions,
+                                  cfg.rope_theta)
+        q, k, v = q[:, 0], k[:, 0], v[:, 0]
+        ck, cv = state.cache_k[l], state.cache_v[l]
+        ck[lanes, slot] = k.to(ck.dtype)
+        cv[lanes, slot] = v.to(cv.dtype)
+        fz = FreezeState(*(a[l] for a in state.freeze))
+        o, rel = OPS.masked_decode_attention(q, ck, cv, exists & ~fz.frozen)
+        x = x + L.attention_out(lp["attn"], o)
+        if enable_freeze:
+            new_fz, active = OPS.freeze_state_update(fz, rel, pos, step,
+                                                     fcfg)
+            for dst, src in zip(fz, new_fz):
+                dst.copy_(src)
+            act_sum = act_sum + torch.sum(active)
+        xn2 = L.rms_norm(x, lp["norm2"] + 1.0, cfg.norm_eps)
+        x = x + L.mlp_forward(lp["ffn"], xn2)
+    x = L.rms_norm(x, params["final_norm"] + 1.0, cfg.norm_eps)
+    logits = unembed(params, cfg, x)
+    act_cnt = B * cfg.num_layers if enable_freeze else 0
+    info: Dict[str, torch.Tensor] = {"mean_active": act_sum / max(act_cnt, 1)}
+    new_state = state
+    if enable_freeze and attn_layer_count(cfg) and fcfg.recovery_enabled:
+        rec, fz_all, rinfo = recovery_update(state.recovery, state.freeze,
+                                             logits, step, fcfg)
+        new_state = state._replace(recovery=rec, freeze=fz_all)
+        info.update(rinfo)
+    frozen = new_state.freeze.frozen
+    # per-lane counts, summed over layers (the host divides by L_attn)
+    info["n_frozen"] = torch.sum(frozen & exists, dim=(0, 2))
+    info["n_active"] = torch.sum(~frozen & exists, dim=(0, 2))
+    return logits, new_state, info
 
 
 # --------------------------------------------------------------------- #

@@ -1,14 +1,18 @@
 """``ServingConfig`` — how a serving engine is deployed, minus the model
-(PyTorch counterpart of ``repro.serving.config``, with the fields this
-slice reads).
+(PyTorch counterpart of ``repro.serving.config``, with the fields the
+port's engines read).
 
-    sv = ServingConfig(max_seq=256, n_lanes=4, max_active_pages=8,
-                       async_pipeline=False)
+    sv = ServingConfig(max_seq=256, n_lanes=4, max_active_pages=8)
     eng = PagedContinuousEngine(cfg, params, serving=sv, device="cuda")
+    eng = ContinuousEngine(cfg, params, serving=sv.replace(
+        max_active_pages=None), device="cuda")
 
-The port has no legacy keyword surface.  Options the port does not serve
-yet raise at construction: the async pipeline (``async_pipeline=True``),
-chaos injection, speculative thaw staging and quantized pages.
+A field only one engine reads is ignored by the other (``offload`` by the
+paged engine, ``max_active_pages`` by the contiguous one, which leaves it
+None).  The port has no legacy keyword surface.  Options the port does not
+serve yet raise at construction: the async pipeline
+(``async_pipeline=True``), chaos injection, speculative thaw staging and
+quantized pages.
 """
 from __future__ import annotations
 
@@ -33,14 +37,19 @@ class ServingConfig:
     # ---- pipeline + robustness ---- #
     async_pipeline: bool = False
     chaos: Optional[Any] = None
+    stash_budget_bytes: Optional[int] = None
     quarantine_window: int = 64
     # ---- recovery rewind budget ---- #
     max_rewinds: int = 4
     rewind_cooldown: int = 32
     # ---- per-page KV quantization ---- #
     kv_quant: str = "none"
+    # ---- contiguous engine ---- #
+    offload: bool = True
+    offload_every: int = 8
+    debug_lane_checks: bool = False
     # ---- paged engine ---- #
-    max_active_pages: Optional[int] = None      # required
+    max_active_pages: Optional[int] = None      # required by the paged one
     prefill_chunk: int = 64
     speculative_thaw: Optional[bool] = None
     burst_prefill: bool = True

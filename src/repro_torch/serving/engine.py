@@ -1,20 +1,26 @@
-"""ASR-KF-EGR paged serving engine (PyTorch counterpart of the synchronous
-path of ``repro.serving.engine.PagedContinuousEngine``).
+"""ASR-KF-EGR serving engines (PyTorch counterpart of the synchronous paths
+of ``repro.serving.engine``).
 
-Continuous batching whose decode attends only each lane's bounded page
-pool: device KV is O(P * page) per lane instead of O(max_seq), frozen and
-overflow pages live in the host store (``core.paging.PagedController``),
-long prompts prefill in chunks interleaved with resident decode, and
-entropy-guided recovery runs page-granular (stashed-page thaws at page
-boundaries, page-aware Rewalk rewinds).
+* ``Engine`` — static batched generation: every lane starts together and
+  runs for the same number of steps (the paper's Table-1 protocol).
+* ``ContinuousEngine`` — continuous batching over a dense per-lane cache:
+  per-lane ``pos``/``step`` clocks, admission into a free lane mid-stream
+  by a single-lane prefill copied over the lane's slice (which resets its
+  KV, freeze and recovery state wholesale), and page-granular host offload
+  of fully frozen KV (``core.cache.HostOffloadController``).
+* ``PagedContinuousEngine`` — continuous batching whose decode attends
+  only each lane's bounded page pool: device KV is O(P * page) per lane,
+  frozen and overflow pages live in the host store
+  (``core.paging.PagedController``), long prompts prefill in chunks
+  interleaved with resident decode, and recovery runs page-granular.
 
-The per-step fetch (sampled tokens, telemetry, recovery requests) rides a
-depth-0 ``FetchRing``: it is pushed right behind the decode step and
-popped in the same engine call, so host decisions are applied in exactly
-the order ``repro``'s ``async_pipeline=False`` engine applies them.  Each
-page-boundary tick pulls the boundary lanes' pool slices to the host once,
-runs the controller, and pushes them back once (metadata only when no K/V
-moved).
+The continuous engines' per-step fetch (sampled tokens, telemetry,
+recovery requests) rides a depth-0 ``FetchRing``: it is pushed right
+behind the decode step and popped in the same engine call, so host
+decisions are applied in exactly the order ``repro``'s
+``async_pipeline=False`` engines apply them.  Each paged page-boundary
+tick pulls the boundary lanes' pool slices to the host once, runs the
+controller, and pushes them back once (metadata only when no K/V moved).
 """
 from __future__ import annotations
 
@@ -26,14 +32,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FreezeConfig, ModelConfig
+from repro_torch.core.cache import HostOffloadController, KVCache
 from repro_torch.core.paging import PagedController
 from repro_torch.device import from_host, host_view, resolve_device
 from repro_torch.models import model as MD
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.dma import FetchRing, HostStaging, TransferStats
 from repro_torch.serving.sampling import (SamplingParams, lane_base_seed,
-                                          sample_batched_perlane)
+                                          sample, sample_batched_perlane)
 
 # decode-clock stand-in for the admission token's draw (decode clocks stay
 # below it), as in the reference
@@ -51,6 +58,13 @@ class GenerationResult:
     recovery_events: List[Dict[str, Any]]
     offloaded_tokens: List[int]
     rewinds: int = 0
+
+    @property
+    def compression(self) -> float:
+        """Paper Table 1: 1 - active/total at the final step."""
+        if not self.active_kv:
+            return 0.0
+        return 1.0 - self.active_kv[-1] / max(self.total_kv[-1], 1)
 
 
 class RequestStatus(str, enum.Enum):
@@ -75,6 +89,115 @@ class Request:
     result: Optional[np.ndarray] = None
     telemetry: Optional[GenerationResult] = None
     status: RequestStatus = RequestStatus.PENDING
+
+
+class Engine:
+    """Static batched generation with ASR-KF-EGR freeze management (the
+    paper's Table-1 protocol).  Sampling draws from a ``torch.Generator``
+    seeded from ``seed``, so stochastic runs cannot match ``repro``'s
+    threefry bits; greedy runs match it token for token."""
+
+    def __init__(self, cfg: ModelConfig, params, max_seq: int,
+                 freeze_cfg: Optional[FreezeConfig] = None,
+                 enable_freeze: bool = True, offload: bool = True,
+                 max_rewinds: int = 4, rewind_cooldown: int = 32,
+                 device=None):
+        self.device = resolve_device(device)
+        self.max_rewinds = max_rewinds
+        self.rewind_cooldown = rewind_cooldown
+        self.cfg = cfg
+        self.params = params
+        self.max_seq = max_seq
+        self.fcfg = freeze_cfg or cfg.freeze
+        self.enable_freeze = enable_freeze
+        self.offload = offload and enable_freeze
+        self.offloader: Optional[HostOffloadController] = None
+        self.stats = TransferStats()
+
+    def generate(self, batch: Dict[str, Any], n_tokens: int,
+                 sampling: SamplingParams = SamplingParams(),
+                 seed: int = 0) -> GenerationResult:
+        """``batch["tokens"]`` (B, S0) left-padded prompts (array or
+        tensor); every lane decodes ``n_tokens`` tokens in lockstep."""
+        cfg, dev = self.cfg, self.device
+        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
+                                 dtype=torch.int64, device=dev)
+        B, S0 = tokens.shape
+        if S0 + n_tokens > self.max_seq:
+            raise ValueError(f"{S0} prompt + {n_tokens} new tokens exceed "
+                             f"max_seq={self.max_seq}")
+        state = MD.init_decode_state(cfg, B, self.max_seq, dev)
+        logits, state = MD.prefill(self.params, cfg, {"tokens": tokens},
+                                   state)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        res = GenerationResult([], [], [], [], [], [], [])
+        self.offloader = offloader = \
+            HostOffloadController(self.fcfg.page_size) if self.offload \
+            else None
+        n_layers_attn = max(state.freeze.frozen.shape[0], 1)
+
+        out_tokens: List[np.ndarray] = []
+        history: List[Tuple[torch.Tensor, int]] = []   # (token, pos)
+        pos, step = S0, 0
+        last_rewind_step = -10**9
+        tok = sample(logits, gen, sampling)
+        out_tokens.append(tok.cpu().numpy())
+        while len(out_tokens) < n_tokens:
+            logits, state, info = MD.decode_step(
+                self.params, cfg, tok.long(), pos, step, state,
+                freeze_cfg=self.fcfg, enable_freeze=self.enable_freeze)
+            # ---- telemetry (every list appends exactly once per step) ----
+            denom = n_layers_attn * B
+            res.active_kv.append(float(torch.sum(info["n_active"])) / denom)
+            res.frozen_kv.append(float(torch.sum(info["n_frozen"])) / denom)
+            res.total_kv.append(pos + 1)
+            if "entropy" in info:
+                res.entropy.append(float(torch.mean(info["entropy"])))
+                if bool(torch.any(info["spike"])):
+                    res.recovery_events.append({
+                        "step": step,
+                        "level": int(torch.max(info["level"])),
+                        "entropy": float(torch.max(info["entropy"])),
+                    })
+            # ---- Rewalk Regeneration (recovery level 4) ----
+            if "rr_request" in info and bool(torch.any(info["rr_request"])) \
+                    and len(history) >= self.fcfg.rewalk_tokens \
+                    and res.rewinds < self.max_rewinds \
+                    and step - last_rewind_step >= self.rewind_cooldown:
+                nback = self.fcfg.rewalk_tokens
+                del history[-nback:]
+                del out_tokens[-nback:]
+                pos -= nback
+                res.rewinds += 1
+                last_rewind_step = step
+                # the input at the rewind point: the last surviving history
+                # entry, or the prefill-sampled first token
+                tok = history[-1][0] if history else \
+                    torch.as_tensor(out_tokens[-1], device=dev)
+                step += 1
+                res.offloaded_tokens.append(
+                    offloader.offloaded_tokens if offloader else 0)
+                continue
+            # ---- host offload of fully-frozen pages ----
+            if offloader is not None and step % 8 == 7:
+                before = offloader.moved_bytes
+                cache = offloader.sync(
+                    KVCache(k=state.cache_k, v=state.cache_v),
+                    host_view(state.freeze.frozen))
+                state = state._replace(cache_k=cache.k, cache_v=cache.v)
+                self.stats.note_blocking(offloader.moved_bytes - before,
+                                         d2h=True)
+            res.offloaded_tokens.append(
+                offloader.offloaded_tokens if offloader else 0)
+
+            tok = sample(logits, gen, sampling)
+            history.append((tok, pos))
+            out_tokens.append(tok.cpu().numpy())
+            pos += 1
+            step += 1
+        res.tokens = np.stack(out_tokens, axis=1)
+        return res
 
 
 @dataclasses.dataclass
@@ -274,6 +397,16 @@ class _LaneEngineBase:
     def _retire(self, lane: int) -> Request:
         raise NotImplementedError
 
+    def _park_lane(self, lane: int) -> None:
+        """Leave a just-vacated lane idle: greedy sampling so the garbage
+        it decodes is cheap, position clamped in-bounds."""
+        l = self.lanes[lane]
+        l.request = None
+        l.generated = []
+        l.history = []
+        self._set_lane_sampling(lane, SamplingParams.greedy())
+        self.pos[lane] = min(int(self.pos[lane]), self.max_seq - 1)
+
     def _next_lane_seed(self, lane: int) -> int:
         self._admit_count += 1
         self.lane_seeds[lane] = lane_base_seed(self.seed, self._admit_count)
@@ -291,6 +424,233 @@ class _LaneEngineBase:
         self._set_lane_sampling(lane, sp)
         self.ring.push({"kind": "admit", "lane": lane, "req": req},
                        {"tok": first})
+
+
+class ContinuousEngine(_LaneEngineBase):
+    """Continuous-batching generation over a dense per-lane cache:
+    per-lane admission and retirement (module docstring).
+
+    The decode step always runs the full ``n_lanes``-wide batch; idle lanes
+    decode garbage that the host ignores.  Prompt lengths are padded to
+    power-of-two buckets as in the reference.  Synchronous only: the fetch
+    ring has depth 0."""
+
+    def __init__(self, cfg: ModelConfig, params, serving: ServingConfig,
+                 device=None):
+        super().__init__(cfg, params, serving, device)
+        sv = serving
+        self.max_rewinds = sv.max_rewinds
+        self.rewind_cooldown = sv.rewind_cooldown
+        # kept for construction parity with the reference: offload timing
+        # follows ``needs_sync`` on every step's page-reduced freeze mask
+        self.offload_every = sv.offload_every
+        self.debug_lane_checks = sv.debug_lane_checks
+        self.state = MD.init_decode_state(cfg, self.n_lanes, self.max_seq,
+                                          self.device)
+        self.offloader = HostOffloadController(
+            self.fcfg.page_size, stash_budget_bytes=sv.stash_budget_bytes,
+            kv_quant=sv.kv_quant) \
+            if (sv.offload and self.enable_freeze) else None
+
+    @property
+    def kv_device_bytes(self) -> int:
+        """Live device KV footprint (the memory metric)."""
+        return self.state.cache_k.nbytes + self.state.cache_v.nbytes
+
+    def _lane_audit(self, lane: int, when: str) -> Dict[str, int]:
+        """``debug_lane_checks`` admit log: the lane's frozen slots (summed
+        over layers) and recovery steps seen, in one blocking pull (a
+        default-off debug path)."""
+        fro, seen = torch.stack([
+            self.state.freeze.frozen[:, lane].sum(),
+            self.state.recovery.steps_seen[lane].long()]).tolist()
+        return {f"frozen_{when}": fro, f"recovery_steps_{when}": seen}
+
+    # ---------------- admission ---------------- #
+    def admit(self, req: Request, lane: Optional[int] = None) -> int:
+        """Prefill ``req`` into a free lane mid-stream: a single-lane prefill
+        copied over the lane's slice of the batched state resets its KV
+        cache, freeze counters and recovery ladder wholesale; the host
+        offload bookkeeping of the lane's previous occupant is dropped."""
+        # drain first, so no ring entry ever spans an admission
+        self._retired_backlog += self._drain_ring()
+        if lane is None:
+            lane = self._free_lane()
+        l = self.lanes[lane]
+        if l.request is not None:
+            raise RuntimeError(f"lane {lane} is busy")
+        prompt = np.asarray(req.prompt, np.int32)
+        sp = self._bucket(len(prompt), req.n_tokens)
+        toks = self._left_padded(prompt, sp)
+        event = {"event": "admit", "uid": req.uid, "lane": lane,
+                 "wall_step": self.wall_step}
+        if self.debug_lane_checks:
+            event.update(self._lane_audit(lane, "before"))
+        lane_state = MD.init_decode_state(self.cfg, 1, self.max_seq,
+                                          self.device)
+        self._note_kv_peak(lane_state.cache_k.nbytes
+                           + lane_state.cache_v.nbytes)
+        logits, lane_state = MD.prefill(
+            self.params, self.cfg,
+            {"tokens": torch.as_tensor(toks, dtype=torch.int64,
+                                       device=self.device)}, lane_state)
+        self.state = MD.write_lane_state(self.cfg, self.state, lane_state,
+                                         lane)
+        del lane_state
+        if self.offloader is not None:
+            self.offloader.drop_lane(lane)
+        if self.debug_lane_checks:
+            event.update(self._lane_audit(lane, "after"))
+        self.pos[lane] = sp
+        self.step[lane] = 0
+        l.request = req
+        l.generated = []
+        l.history = []
+        l.rewinds = 0
+        l.last_rewind_step = -10**9
+        req.telemetry = GenerationResult([], [], [], [], [], [], [])
+        self._push_admit_token(lane, req, logits)
+        self.events.append(event)
+        self._retired_backlog += self._drain_ring()
+        return lane
+
+    # ---------------- stepping ---------------- #
+    def step_once(self) -> List[Request]:
+        """One engine call: drain pending fetches, one decode step over
+        all lanes with its fetch pushed and drained in this call.  Returns
+        the requests that retired."""
+        self.stats.begin_step()
+        finished = self._retired_backlog + self._drain_ring()
+        self._retired_backlog = []
+        active = [i for i, l in enumerate(self.lanes) if l.request is not None]
+        if not active:
+            self.stats.cancel_step()
+            return finished
+        self._note_kv_peak()
+        dev = self.device
+        logits, self.state, info = MD.decode_step(
+            self.params, self.cfg,
+            torch.as_tensor(self.tok, dtype=torch.int64, device=dev),
+            torch.as_tensor(self.pos, device=dev),
+            torch.as_tensor(self.step, device=dev), self.state,
+            freeze_cfg=self.fcfg, enable_freeze=self.enable_freeze)
+        self.wall_step += 1
+        keys = ("n_active", "n_frozen", "entropy", "spike", "level",
+                "rr_request")
+        arrays = {k: info[k] for k in keys if k in info}
+        arrays["toks"] = sample_batched_perlane(
+            logits, self.lane_seeds, self.step, self._temp, self._topk,
+            self._topp)
+        offload = self.offloader is not None
+        if offload:
+            # the offloader reads the freeze mask reduced to pages on the
+            # device, page_size x less than the token mask
+            fz = self.state.freeze.frozen
+            pg = self.offloader.page_size
+            n_pages = fz.shape[2] // pg
+            arrays["frozen_pages"] = fz[:, :, :n_pages * pg].reshape(
+                fz.shape[0], fz.shape[1], n_pages, pg).all(dim=-1)
+        self.ring.push({"kind": "step", "active": active,
+                        "offload": offload}, arrays)
+        finished += self._drain_ring()
+        self.stats.end_step()
+        return finished
+
+    def _commit_step(self, meta: Dict[str, Any], host: Dict[str, Any]
+                     ) -> List[Request]:
+        """Apply one drained step entry: telemetry, rewinds, quarantine,
+        host offload, token commits and retirement, in the reference's
+        order."""
+        active = meta["active"]
+        get = host.get
+        n_active, n_frozen = get("n_active"), get("n_frozen")
+        entropy, spike, level = get("entropy"), get("spike"), get("level")
+        rr = get("rr_request")
+        toks = host["toks"]
+        n_layers_attn = max(self.state.freeze.frozen.shape[0], 1)
+
+        for i in active:
+            res = self.lanes[i].request.telemetry
+            res.active_kv.append(float(n_active[i]) / n_layers_attn)
+            res.frozen_kv.append(float(n_frozen[i]) / n_layers_attn)
+            res.total_kv.append(int(self.pos[i]) + 1)
+            if entropy is not None:
+                res.entropy.append(float(entropy[i]))
+                if spike is not None and bool(spike[i]):
+                    res.recovery_events.append({
+                        "step": int(self.step[i]),
+                        "level": int(level[i]),
+                        "entropy": float(entropy[i]),
+                    })
+
+        rewound = set()
+        if rr is not None:
+            for i in active:
+                l = self.lanes[i]
+                if bool(rr[i]) and len(l.history) >= self.fcfg.rewalk_tokens \
+                        and l.rewinds < self.max_rewinds \
+                        and int(self.step[i]) - l.last_rewind_step \
+                            >= self.rewind_cooldown:
+                    self._rewind_bookkeeping(i)
+                    rewound.add(i)
+
+        quarantined = self._quarantine_scan(active, entropy, rewound)
+
+        if meta["offload"]:
+            frozen = host["frozen_pages"]
+            idle = [i for i, l in enumerate(self.lanes) if l.request is None]
+            if idle:   # idle lanes decode garbage; never offload it
+                frozen = frozen.copy()
+                frozen[:, idle, :] = False
+            if self.offloader.needs_sync(frozen, reduced=True):
+                t0 = time.perf_counter()
+                before = self.offloader.moved_bytes
+                cache = self.offloader.sync(
+                    KVCache(k=self.state.cache_k, v=self.state.cache_v),
+                    frozen, reduced=True)
+                self.state = self.state._replace(cache_k=cache.k,
+                                                 cache_v=cache.v)
+                self.stats.note_blocking(
+                    self.offloader.moved_bytes - before, d2h=True,
+                    seconds=time.perf_counter() - t0)
+        for i in active:
+            if self.lanes[i].request is None:       # quarantined above
+                continue
+            self.lanes[i].request.telemetry.offloaded_tokens.append(
+                self.offloader.offloaded_tokens_lane(i)
+                if self.offloader is not None else 0)
+
+        finished = list(quarantined)
+        for i in active:
+            if i in rewound:
+                continue
+            l = self.lanes[i]
+            if l.request is None:                   # quarantined above
+                continue
+            t = int(toks[i])
+            l.history.append((t, int(self.pos[i])))
+            l.generated.append(t)
+            self.tok[i] = t
+            self.pos[i] += 1
+            self.step[i] += 1
+            if len(l.generated) >= l.request.n_tokens:
+                finished.append(self._retire(i))
+        return finished
+
+    def _retire(self, lane: int) -> Request:
+        l = self.lanes[lane]
+        req = l.request
+        req.result = np.asarray(l.generated[: req.n_tokens], np.int32)
+        req.telemetry.tokens = req.result[None, :]
+        self._finalize_status(req)
+        self.events.append({"event": "finish", "uid": req.uid, "lane": lane,
+                            "wall_step": self.wall_step})
+        # park the idle lane; the retired request's offloaded pages are
+        # released right away (the offload sync also masks idle lanes)
+        self._park_lane(lane)
+        if self.offloader is not None:
+            self.offloader.drop_lane(lane)
+        return req
 
 
 @dataclasses.dataclass

@@ -1,5 +1,7 @@
-"""Per-lane token sampling: temperature / top-k / top-p (paper §4.1), greedy
-at temperature 0.
+"""Token sampling: temperature / top-k / top-p (paper §4.1), greedy at
+temperature 0.  ``sample`` applies one ``SamplingParams`` to the whole
+batch (static batching, ``Engine.generate``); ``sample_batched_perlane``
+takes per-lane parameters and clocks (the continuous engines).
 
 Torch cannot reproduce JAX's threefry ``fold_in`` / ``categorical`` bits, so
 stochastic lanes draw from a generator (Philox on the card) seeded from
@@ -68,6 +70,25 @@ def _mask_logits(logits: torch.Tensor, temperature: torch.Tensor,
     cutoff = torch.gather(sorted_desc, -1, cutoff_idx)
     return torch.where(masked >= cutoff, masked,
                        torch.full((), float("-inf"), device=logits.device))
+
+
+def sample(logits: torch.Tensor, generator: torch.Generator,
+           params: SamplingParams) -> torch.Tensor:
+    """logits (B, V) -> tokens (B,) int32 under one ``SamplingParams``,
+    drawing from ``generator`` (on the logits' device).  As the reference's
+    ``sample``: temperature scaling, top-k then top-p masking, then a
+    categorical draw, here by Gumbel-max."""
+    if params.temperature <= 0.0:
+        return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+    B = logits.shape[0]
+    dev = logits.device
+    masked = _mask_logits(
+        logits, torch.full((B,), float(params.temperature), device=dev),
+        torch.full((B,), int(params.top_k or 0), device=dev),
+        torch.full((B,), float(params.top_p), device=dev))
+    u = torch.rand(masked.shape, generator=generator, device=dev)
+    gumbel = -torch.log(-torch.log(torch.clamp(u, 1e-20, 1.0 - 1e-7)))
+    return torch.argmax(masked + gumbel, dim=-1).to(torch.int32)
 
 
 def sample_batched_perlane(logits: torch.Tensor, lane_seeds, steps,
