@@ -3,7 +3,10 @@ from a seed.  The CPU tests feed them to the JAX reference, the Pallas
 kernel (interpret mode) and the port's plain version; the chip smoke feeds
 them to the CUDA kernel and its plain version.  The shapes are those of
 ``tests/test_kernels.py``'s paged sweeps, plus the serving shape of the
-main path.
+main path, plus layouts aimed at the CUDA kernel's split of the page walk
+(``paged_decode_attn.pages_per_block``): a P the pages-per-block does not
+divide, a split whose pages are all skipped, and a lane whose only live
+page is the last.
 
 Each ``Case`` carries float32 arrays; ``dtype`` says which type the
 floats (q, K, V) are cast to before the call.  Quantized cases hold the
@@ -19,6 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import quant
+from repro_torch.kernels.paged_decode_attn import (PAGE_SPLITS,
+                                                  pages_per_block)
 
 TOLS = {"float32": dict(rtol=2e-5, atol=2e-5),
         "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -37,6 +42,9 @@ VISIBLE_SHAPES = [(1, 4, 128, 8, 8, 64), (2, 6, 64, 8, 2, 64),
                   (3, 5, 32, 16, 8, 128)]
 # B, P, page, H, KVH, hd of one decode step of llama3-8b in the engine
 MAIN_PATH_SHAPE = (4, 8, 64, 32, 8, 128)
+# P = 2 * PAGE_SPLITS + 1: three pages a block of the CUDA walk, the last
+# split two pages long
+SPLIT_SHAPE = (2, 2 * PAGE_SPLITS + 1, 16, 8, 2, 64)
 
 
 @dataclasses.dataclass
@@ -165,6 +173,52 @@ def main_path_case() -> Case:
                 zero_rel_pages=(P - 1,))
 
 
+def _split_layout(seed):
+    B, P, page, H, KVH, hd = SPLIT_SHAPE
+    rng = np.random.RandomState(seed)
+    x = _qkv(rng, *SPLIT_SHAPE)
+    sm = rng.rand(B, P, page) < 0.6
+    sm[:, :, 0] = True
+    return rng, x, sm, _arange_table(B, P), np.ones((B, P), bool)
+
+
+def ragged_split_case(dtype) -> Case:
+    """A P that pages-per-block does not divide: the last split of the
+    walk is shorter than the others."""
+    _, x, sm, pt, vis = _split_layout(21)
+    return Case(f"ragged-split-{'x'.join(map(str, SPLIT_SHAPE))}-{dtype}",
+                dtype, dict(x, slot_mask=sm, page_table=pt,
+                            page_visible=vis))
+
+
+def dead_split_case(dtype) -> Case:
+    """Every page of the second split is skipped, one of each kind:
+    unmapped (with set mask bits), invisible, and empty-masked."""
+    _, x, sm, pt, vis = _split_layout(22)
+    ppb = pages_per_block(SPLIT_SHAPE[1])
+    p0 = ppb                                   # the second split's pages
+    pt[:, p0] = -1
+    vis[:, p0 + 1] = False
+    sm[:, p0 + 2] = False
+    return Case(f"dead-split-{'x'.join(map(str, SPLIT_SHAPE))}-{dtype}",
+                dtype, dict(x, slot_mask=sm, page_table=pt,
+                            page_visible=vis),
+                zero_rel_pages=tuple(range(p0, p0 + ppb)))
+
+
+def last_page_only_case(dtype) -> Case:
+    """Lane 0's only live page is the last one (the others unmapped,
+    invisible or empty); lane 1 is ordinary."""
+    _, x, sm, pt, vis = _split_layout(23)
+    P = SPLIT_SHAPE[1]
+    pt[0, :P - 1:3] = -1
+    vis[0, 1:P - 1:3] = False
+    sm[0, 2:P - 1:3] = False
+    return Case(f"last-page-only-{'x'.join(map(str, SPLIT_SHAPE))}-{dtype}",
+                dtype, dict(x, slot_mask=sm, page_table=pt,
+                            page_visible=vis))
+
+
 def tolerance_cases() -> List[Case]:
     """Every case whose kernel output is held against the plain version
     within ``TOLS``."""
@@ -173,6 +227,8 @@ def tolerance_cases() -> List[Case]:
     cases += [visible_case(s, d) for s in VISIBLE_SHAPES for d in DTYPES]
     cases += [quant_case(s, d, m) for s in SWEEP_SHAPES for d in DTYPES
               for m in ("int8", "fp8")]
+    cases += [f(d) for f in (ragged_split_case, dead_split_case,
+                              last_page_only_case) for d in DTYPES]
     cases.append(main_path_case())
     return cases
 

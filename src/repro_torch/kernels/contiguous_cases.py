@@ -6,9 +6,11 @@ port's plain versions; the chip smoke and the card tests feed them to the
 CUDA kernels and their plain versions.
 
 Attention shapes are those of ``tests/test_kernels.py``'s freeze-masked
-sweep, plus a ragged S no chunk divides, a shape whose CUDA walk splits
-unevenly across blocks, a skipped-block case, a dead lane and the main
-path's shape.  Freeze-update cases are that file's
+sweep, plus a ragged S no chunk divides, a many-block shape, a
+skipped-block case, a dead lane and the main path's shape, and two
+layouts aimed at the CUDA kernel's chunks (``freeze_decode_attn.CHUNK``):
+a ragged last chunk alone in its block, and a chunk whose one active slot
+is its last.  Freeze-update cases are that file's
 sweep, crossed with scalar and per-lane clocks and fixed and quantile
 thresholds, plus the main path's shape.
 """
@@ -32,6 +34,9 @@ ATTN_SWEEP = [(1, 512, 8, 8, 64), (2, 1024, 8, 4, 64), (2, 512, 4, 1, 128),
 MAIN_PATH_SHAPE = (4, 2048, 32, 8, 128)
 TABLE1_SHAPE = (1, 560, 32, 8, 128)
 SPLIT_SHAPE = (8, 1200, 16, 8, 64)
+# the slot layout of the cases above was written for chunks of 128 slots;
+# it stays put whatever the kernel's CHUNK
+BLOCK = 128
 
 
 @dataclasses.dataclass
@@ -58,7 +63,7 @@ def _main_path_mask(rng, B, S):
     for b, n in enumerate(lens):
         mask[b, :n] = rng.rand(n) < 0.5
         mask[b, n - 16:n] = True                  # the window stays active
-    mask[:, 3 * CHUNK:5 * CHUNK] = False          # fully inactive chunks
+    mask[:, 3 * BLOCK:5 * BLOCK] = False          # fully inactive chunks
     return mask
 
 
@@ -82,15 +87,32 @@ def attn_cases() -> List[AttnCase]:
             mask[:, S - 20:] = True               # the ragged last chunk
             out.append(AttnCase(f"{name}-{B}x{S}-{dtype}", dtype,
                                 dict(x, active_mask=mask)))
-    # many (lane, kv head) pairs: the CUDA kernel's split walk takes two
-    # chunks a block, and its last splits start past S
+    # many (lane, kv head) pairs and chunks
     B, S, H, KVH, hd = SPLIT_SHAPE
     for dtype in DTYPES:
         rng = np.random.RandomState(S + H)
         x = _qkv(rng, B, S, H, KVH, hd, dtype)
         mask = rng.rand(B, S) < 0.5
-        mask[:, 2 * CHUNK:3 * CHUNK] = False      # one chunk of a split
+        mask[:, 2 * BLOCK:3 * BLOCK] = False      # a whole chunk
         out.append(AttnCase(f"split-{B}x{S}-{dtype}", dtype,
+                            dict(x, active_mask=mask)))
+    for dtype in DTYPES:
+        # the last chunk holds 5 slots, alone in its block
+        B, S, H, KVH, hd = 2, 2 * CHUNK + 5, 8, 2, 64
+        rng = np.random.RandomState(S)
+        x = _qkv(rng, B, S, H, KVH, hd, dtype)
+        mask = rng.rand(B, S) < 0.5
+        mask[:, S - 5:] = True
+        out.append(AttnCase(f"ragged-last-chunk-{B}x{S}-{dtype}", dtype,
+                            dict(x, active_mask=mask)))
+        # the second chunk's only active slot is its last
+        B, S = 2, 3 * CHUNK
+        rng = np.random.RandomState(S + 1)
+        x = _qkv(rng, B, S, H, KVH, hd, dtype)
+        mask = rng.rand(B, S) < 0.5
+        mask[:, CHUNK:2 * CHUNK] = False
+        mask[:, 2 * CHUNK - 1] = True
+        out.append(AttnCase(f"one-slot-chunk-{B}x{S}-{dtype}", dtype,
                             dict(x, active_mask=mask)))
     out.append(main_path_case())
     return out

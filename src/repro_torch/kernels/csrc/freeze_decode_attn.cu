@@ -7,35 +7,46 @@
 // attends over the lane's cache k, v (B,S,KVH,hd) under active_mask (B,S),
 // with an online softmax in f32.  Per-slot relevance is the paper's Eq. 2
 // score, the mean over all H query heads of |q.k|; it is exactly 0 on an
-// inactive slot, also inside a partly active chunk.  A chunk of slots with
-// no active slot does no math and reads no K/V (frozen slots may hold
-// anything).  A lane with nothing active outputs zeros.  Any S is taken:
-// the ragged last chunk is masked here (the Pallas kernel asserts
-// S % block_s == 0).
+// inactive slot, also inside a partly active chunk.  Inactive slots' K/V
+// are never read (frozen slots may hold anything), so a chunk with no
+// active slot reads none.  A lane with nothing active outputs zeros.  Any
+// S is taken: the ragged last chunk is masked here (the Pallas kernel
+// asserts S % block_s == 0).
 //
-// What bounds it on this card: HBM bytes.  Each active chunk's K and V rows
-// are read once (bytes ~ active slots * KVH * hd * 2 * sizeof(T), plus q,
-// the mask, out and relevance); the arithmetic is ~4 flops per K/V element,
-// far below the H100's ridge point.
+// What bounds it on this card: HBM bytes.  Only active slots' K and V rows
+// are read (bytes ~ active slots * KVH * hd * 2 * sizeof(T), plus q, the
+// mask, out and relevance; 9.2 MB and 0.0028 ms at the main path's B=4,
+// S=2048, H=32, KVH=8, hd=128, bf16 with 2,226 of 8,192 slots active); the
+// arithmetic is ~4 flops per K/V element, far below the H100's ridge
+// point, so the only lever is having the bytes in flight.
 //
-// Design (the paged kernel's shape, with the walk split across blocks): a
-// block (lane b, kv head kh, split z) holds that head's G = H / KVH query
-// rows in registers (G is a template parameter) and walks its share of the
-// chunks of kChunk slots with a running (m, l, acc) in f32; the TPU grid's
-// sequential S axis becomes this loop.  The caller picks the number of
-// splits (kernels/freeze_decode_attn.py: about 512 blocks in all, one chunk
-// a block at the serving shape, 4 x 8 x 16), since B * KVH blocks alone
-// (32) leave most of the card's 132 SMs idle; a split past the last chunk
-// finds nothing active.  A chunk's mask is read first and the chunk
-// is skipped when no slot is active.  Each warp keeps kTokPerWarp K rows in
-// flight; its lane 0 holds the G dot products of a slot and writes their
-// |.| sum, in g order, as the (b, kh, s) relevance partial to a
-// (B, KVH, S) scratch.  V is staged through shared memory a chunk of rows
-// at a time.  Each block writes its unnormalised (m, l, acc) to a
-// (B, H, splits) scratch; a merge kernel combines the splits in index
-// order, and a third sums the relevance partials over kv heads in index
-// order and divides by H: no atomics, so the output and the freeze
-// decisions fed by the relevance do not change from run to run.
+// Design (flash-decoding, two launches a call).  The previous version
+// walked a split's chunks with a chain of barriers and 2-byte loads; this
+// one puts every active row's bytes in flight at once:
+//  1. freeze_attn_kernel: one block of 128 threads per (chunk z of `chunk`
+//     slots, kv head kh, lane b), 512 blocks at the main path.  The block
+//     reads its chunk's mask and compacts the active slots, in slot order,
+//     into a shared index list (a ballot and popcount prefix per warp), so
+//     only active rows are loaded and a chunk with none reads no K/V.  It
+//     then issues every active K and V row chunk as 16-byte cp.async
+//     copies into shared memory and waits once.  Thread (r, c) owns chunk
+//     c of compacted rows r, r + rpp, ...; the G = H / KVH query rows'
+//     chunks sit in registers.  Each thread's share of q.k goes to shared
+//     memory and one thread a row adds the row's shares and writes the
+//     slot's relevance partial (|q.k| summed over the G rows, in g order)
+//     to a (B, KVH, S) scratch; one warp per query row runs the softmax;
+//     every thread accumulates P.V for its rows and chunk, and the rows'
+//     sums go through shared memory in index order.  The block writes its
+//     unnormalised (m, l, acc) per query row to scratch (acc 0 for a chunk
+//     with nothing active).
+//  2. freeze_combine_kernel, launched as a programmatic dependent of the
+//     first (sm_90, CUDA 12.3 or later): a warp per (b, h) merges the
+//     chunks' (m, l, acc) in chunk index order, and a thread per slot sums
+//     an active slot's relevance partials over kv heads in index order
+//     before dividing by H (0 on inactive slots, whose partials are never
+//     read).
+// No atomics: the output and the freeze decisions fed by the relevance
+// do not change from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,19 +54,83 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxHd = 128;        // head_dim: a power of two up to this
-constexpr int kChunk = 128;        // slots per step of the walk
-constexpr int kHdPerLane = kMaxHd / 32;
-constexpr int kTokPerWarp = kChunk / kWarps;   // K rows a warp has in flight
-constexpr int kVChunk = 32;        // V rows staged in shared memory
+constexpr int kMaxChunk = 256;     // slots a block: a multiple of 32 up to this
+constexpr int kLoads = 8;          // K rows and V rows a thread has in flight
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// 16 bytes of T as kVec floats (bf16 is the high half of an f32)
+template <typename T> struct Pack;
+template <> struct Pack<float> {
+  static constexpr int kVec = 4;
+  using Bits = uint32_t;
+  static __device__ __forceinline__ void unpack(const uint4& u,
+                                                float (&f)[kVec]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+template <> struct Pack<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  using Bits = uint16_t;
+  static __device__ __forceinline__ void unpack(const uint4& u,
+                                                float (&f)[kVec]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// kVec elements from p: one 16-byte load when `vec` (p 16-byte aligned),
+// else the first n elements one by one and zeros after them
+template <typename T>
+__device__ __forceinline__ uint4 load_chunk(const T* __restrict__ p, int n,
+                                            bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  constexpr int kVec = Pack<T>::kVec, kPerWord = 4 / sizeof(T);
+  const auto* src = reinterpret_cast<const typename Pack<T>::Bits*>(p);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < kVec; ++e)
+    if (e < n)
+      w[e / kPerWord] |= static_cast<uint32_t>(src[e])
+                         << ((32 / kPerWord) * (e % kPerWord));
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
+
+// 16 bytes from global to shared memory by cp.async, zero-filled with
+// nothing read when src_bytes is 0; complete after cp_async_wait()
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// A thread's own chunk of a K or V row into shared memory (zeros when not
+// ok): a 16-byte cp.async when kAsync, so every chunk of a tile is in
+// flight at once with no register held; else element loads.
+template <typename T, bool kAsync>
+__device__ __forceinline__ void stage(uint4* dst, const T* src, bool ok,
+                                      int n) {
+  if constexpr (kAsync)
+    cp_async16(dst, src, ok ? 16 : 0);
+  else
+    *dst = ok ? load_chunk(src, n, false) : make_uint4(0, 0, 0, 0);
+}
+
 __device__ __forceinline__ void store_f32(float x, float* o) { *o = x; }
 __device__ __forceinline__ void store_f32(float x, __nv_bfloat16* o) {
   *o = __float2bfloat16(x);                               // round to nearest even
@@ -74,119 +149,270 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <typename T, int G>
-__global__ void __launch_bounds__(kThreads)
+// Programmatic dependent launch (sm_90): the attention kernel lets the
+// combine kernel be scheduled while it runs, and the combine waits for the
+// attention grid's completion (and its writes) before reading partials.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_for_primary() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Row `row` of out by one warp from its splits' partials: out = sum_z
+// e^(m_z - M) acc_z / sum_z e^(m_z - M) l_z over the splits z with l_z > 0,
+// summed in index order (zeros when none).  Lane j takes columns j, j + 32,
+// ...; every split writes its acc (zeros when it had nothing live), so the
+// first kB splits' acc go out together with the (m, l) loads, lane z
+// loading split z's (m, l), and the weights pass between lanes by shuffle.
+template <typename T>
+__device__ void merge_row(const float* __restrict__ ml,
+                          const float* __restrict__ acc, T* __restrict__ out,
+                          int n_split, int hd) {
+  constexpr int kB = 8, kCols = kMaxHd / 32;
+  const int lane = threadIdx.x & 31;
+  const float2* ml2 = reinterpret_cast<const float2*>(ml);
+  float av[kB][kCols];
+#pragma unroll
+  for (int j = 0; j < kB; ++j)
+#pragma unroll
+    for (int e = 0; e < kCols; ++e)
+      av[j][e] = j < n_split && lane + 32 * e < hd
+          ? acc[(size_t)j * hd + lane + 32 * e] : 0.f;
+  const float2 own = lane < n_split ? ml2[lane] : make_float2(kNegInf, 0.f);
+  float m = own.y > 0.f ? own.x : kNegInf;
+  for (int z = lane + 32; z < n_split; z += 32) {
+    const float2 e = ml2[z];
+    if (e.y > 0.f) m = fmaxf(m, e.x);
+  }
+  m = warp_max(m);
+  float l = 0.f, a[kCols];
+#pragma unroll
+  for (int e = 0; e < kCols; ++e) a[e] = 0.f;
+  for (int z0 = 0; z0 < n_split; z0 += 32) {
+    const float2 mine = z0 == 0 ? own
+        : z0 + lane < n_split ? ml2[z0 + lane] : make_float2(kNegInf, 0.f);
+    const float w = mine.y > 0.f ? expf(mine.x - m) : 0.f;
+    const int nz = min(32, n_split - z0);
+    for (int j0 = 0; j0 < nz; j0 += kB) {
+      if (z0 + j0 > 0) {
+#pragma unroll
+        for (int j = 0; j < kB; ++j)
+#pragma unroll
+          for (int e = 0; e < kCols; ++e)
+            av[j][e] = j0 + j < nz && lane + 32 * e < hd
+                ? acc[(size_t)(z0 + j0 + j) * hd + lane + 32 * e] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kB; ++j) {
+        if (j0 + j >= nz) break;
+        const float wj = __shfl_sync(0xffffffffu, w, j0 + j);
+        const float lj = __shfl_sync(0xffffffffu, mine.y, j0 + j);
+        if (lj > 0.f) {
+          l += wj * lj;
+#pragma unroll
+          for (int e = 0; e < kCols; ++e) a[e] += wj * av[j][e];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kCols; ++e)
+    if (lane + 32 * e < hd)
+      store_f32(l > 0.f ? a[e] / fmaxf(l, 1e-30f) : 0.f,
+                out + lane + 32 * e);
+}
+
+// Thread (r, c) of the attention kernels: chunk c of rows r, r + rpp, ...
+// of a tile, a row being L chunks of kVec elements (L a power of two up to
+// 32).  Its K and V chunks are staged in its own slots of kv_s (K slot i at
+// i * kThreads + tid, V at (kLoads + i) * kThreads + tid), and it is the
+// only thread that reads them; the cross-thread sums go through those
+// slots, each thread writing over its own after reading it.
+struct Layout {
+  int L, lshift, c, r, rpp, tile;
+  __device__ explicit Layout(int hd, int kVec) {
+    L = hd >= kVec ? hd / kVec : 1;
+    lshift = __ffs(L) - 1;
+    c = threadIdx.x & (L - 1);
+    r = threadIdx.x >> lshift;
+    rpp = kThreads >> lshift;
+    tile = rpp * kLoads;
+  }
+};
+
+// Scores of the tile's rows: each thread writes the G partial dot products
+// of each of its rows (a float4) over its own K slot; after a barrier, one
+// thread a row adds the row's L partials, starting at chunk (row mod L) so
+// that the eight rows of a 128-bit shared-memory phase hit distinct banks.
+// Returns the G sums of row `row` in s (G <= 4).
+__device__ __forceinline__ void row_sums(const float4* part, const Layout& y,
+                                         int row, float (&s)[4]) {
+  const int base = (row >> (__ffs(y.rpp) - 1)) * kThreads +
+                   (row & (y.rpp - 1)) * y.L;
+  s[0] = s[1] = s[2] = s[3] = 0.f;
+  for (int k = 0; k < y.L; ++k) {
+    const float4 v = part[base + ((k + row) & (y.L - 1))];
+    s[0] += v.x;
+    s[1] += v.y;
+    s[2] += v.z;
+    s[3] += v.w;
+  }
+}
+
+// The block's unnormalised P.V for its G query rows, (G, hd) f32 at out:
+// each thread writes its acc over its own K slots (free after the last
+// tile), and after a barrier each output column sums the rpp row slots in
+// index order.
+template <int G, int kVec>
+__device__ __forceinline__ void write_acc(uint4* kv_s, const Layout& y,
+                                          const float (&acc)[G][kVec],
+                                          float* out, size_t g_stride,
+                                          int hd) {
+  const float* acc_s = reinterpret_cast<const float*>(kv_s);
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < kVec; e += 4)
+      reinterpret_cast<float4*>(kv_s)[((g * kVec + e) >> 2) * kThreads + tid] =
+          make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2], acc[g][e + 3]);
+  __syncthreads();
+  const int hd_shift = __ffs(hd) - 1;
+  for (int o = tid; o < G * hd; o += kThreads) {
+    const int g = o >> hd_shift, d = o & (hd - 1);
+    const int f = g * kVec + (d & (kVec - 1));
+    const float* src = acc_s + ((f >> 2) * kThreads + (d / kVec)) * 4 +
+                       (f & 3);
+    float sum = 0.f;
+#pragma unroll 8
+    for (int rr = 0; rr < y.rpp; ++rr) sum += src[rr * y.L * 4];
+    out[g * g_stride + d] = sum;
+  }
+}
+
+template <typename T, int G, bool kAsync>
+__global__ void __launch_bounds__(kThreads, 3)
 freeze_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const uint8_t* __restrict__ mask,
                    float* __restrict__ part_ml, float* __restrict__ part_acc,
                    float* __restrict__ relp, int S, int KVH, int hd,
-                   int chunks_per_split, float scale) {
-  const int b = blockIdx.x, kh = blockIdx.y, z = blockIdx.z;
-  const int n_split = gridDim.z;
+                   int chunk, float scale) {
+  launch_dependents();
+  constexpr int kVec = Pack<T>::kVec;
+  constexpr int kPasses = kMaxChunk / kThreads;
+  const int z = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int n_split = gridDim.x;
   const int H = G * KVH;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  __shared__ float s_s[G * kChunk];          // raw scores, then probabilities
-  __shared__ float v_s[kVChunk * kMaxHd];   // one chunk of V rows
-  __shared__ uint8_t mask_s[kChunk];
+  const Layout y(hd, kVec);
+  const int cn = min(kVec, hd - y.c * kVec);   // elements of chunk c
+  __shared__ float s_s[G][kMaxChunk];          // raw scores, then probabilities
+  __shared__ uint4 kv_s[2 * kLoads * kThreads];
+  __shared__ int16_t idx_s[kMaxChunk];         // active slots of the chunk
+  __shared__ int cnt_s[kMaxChunk / 32];        // active slots a word of 32
   __shared__ float m_s[G], l_s[G], corr_s[G];
+  const float4* part = reinterpret_cast<const float4*>(kv_s);
 
-  // each lane keeps its head_dim slice of the G query rows in registers
-  float q_r[G][kHdPerLane];
+  const int s0 = z * chunk, n = min(chunk, S - s0);
+  // the chunk's mask as ballots, a word of 32 slots a warp and pass
+  unsigned bal[kPasses];
+#pragma unroll
+  for (int j = 0; j < kPasses; ++j) {
+    const int t = j * kThreads + tid;
+    const bool act = t < n && mask[(size_t)b * S + s0 + t] != 0;
+    bal[j] = __ballot_sync(0xffffffffu, act);
+    if (lane == 0) cnt_s[j * kWarps + warp] = __popc(bal[j]);
+  }
+  float q_r[G][kVec];
 #pragma unroll
   for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int j = 0; j < kHdPerLane; ++j) {
-      const int d = lane + 32 * j;
-      q_r[g][j] = d < hd ? to_f32(q[((size_t)b * H + kh * G + g) * hd + d])
-                         : 0.f;
-    }
+    Pack<T>::unpack(load_chunk(q + ((size_t)b * H + kh * G + g) * hd +
+                                   y.c * kVec, cn, kAsync), q_r[g]);
   if (tid < G) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
-  // this thread's output column d_own and rows g0, g0 + gstep, ...: hd is a
-  // power of two dividing kMaxHd, so a thread owns at most kRows rows
-  constexpr int kRows = (G * kMaxHd + kThreads - 1) / kThreads;
-  const int hd_shift = __ffs(hd) - 1;
-  const int d_own = tid & (hd - 1), g0 = tid >> hd_shift;
-  const int gstep = kThreads >> hd_shift;
-  float acc[kRows];
+  __syncthreads();
+  // compact: active slot t goes to the count of active slots before it
+  int n_act = 0;
+  for (int w = 0; w < (chunk + 31) / 32; ++w) {
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) acc[j] = 0.f;
+    for (int j = 0; j < kPasses; ++j)
+      if (w == j * kWarps + warp && (bal[j] >> lane & 1u))
+        idx_s[n_act + __popc(bal[j] & ((1u << lane) - 1u))] =
+            static_cast<int16_t>(j * kThreads + tid);
+    n_act += cnt_s[w];
+  }
   __syncthreads();
 
-  const size_t tok_stride = (size_t)KVH * hd;
-  const T* kb = k + (size_t)b * S * tok_stride + (size_t)kh * hd;
-  const T* vb = v + (size_t)b * S * tok_stride + (size_t)kh * hd;
-  float* relp_b = relp + ((size_t)b * KVH + kh) * S;
-  const int s_end = min(S, (z + 1) * chunks_per_split * kChunk);
-  for (int s0 = z * chunks_per_split * kChunk; s0 < s_end; s0 += kChunk) {
-    const int n = min(kChunk, S - s0);
-    uint8_t mk = 0;
-    if (tid < kChunk) {
-      mk = tid < n ? mask[(size_t)b * S + s0 + tid] : 0;
-      mask_s[tid] = mk;
-    }
-    // a chunk with no active slot reads no K/V; its relevance is written 0
-    // by the sum pass, which reads the mask first
-    if (__syncthreads_count(mk != 0) == 0) continue;
+  float acc[G][kVec];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
 
-    // raw scores q.k: a warp per slot, lanes across head_dim; a warp loads
-    // kTokPerWarp active rows, then reduces each row's G dot products
-    // together
-    float kv[kTokPerWarp][kHdPerLane];
+  const size_t tok_stride = (size_t)KVH * hd;
+  const T* kb = k + ((size_t)b * S + s0) * tok_stride + (size_t)kh * hd +
+                y.c * kVec;
+  const T* vb = v + ((size_t)b * S + s0) * tok_stride + (size_t)kh * hd +
+                y.c * kVec;
+  float* relp_b = relp + ((size_t)b * KVH + kh) * S + s0;
+  for (int i0 = 0; i0 < n_act; i0 += y.tile) {
+    const int tn = min(y.tile, n_act - i0);
+    // every K and V chunk of the tile's active rows in flight at once
+    // (zeros past the last)
 #pragma unroll
-    for (int u = 0; u < kTokPerWarp; ++u) {
-      const int t = warp + kWarps * u;
-      const bool ok = t < n && mask_s[t];
-#pragma unroll
-      for (int j = 0; j < kHdPerLane; ++j) {
-        const int d = lane + 32 * j;
-        kv[u][j] = (ok && d < hd)
-            ? to_f32(kb[(size_t)(s0 + t) * tok_stride + d]) : 0.f;
-      }
+    for (int i = 0; i < kLoads; ++i) {
+      const int j = i * y.rpp + y.r;
+      const bool ok = j < tn;
+      const size_t off = ok ? (size_t)idx_s[i0 + j] * tok_stride : 0;
+      stage<T, kAsync>(&kv_s[i * kThreads + tid], kb + off, ok, cn);
+      stage<T, kAsync>(&kv_s[(kLoads + i) * kThreads + tid], vb + off, ok,
+                       cn);
     }
+    if constexpr (kAsync) cp_async_wait();
+    // this thread's share of q.k, then each row's sums; the row's thread
+    // writes the slot's relevance partial (|q.k| summed over g in order)
 #pragma unroll
-    for (int u = 0; u < kTokPerWarp; ++u) {
-      const int t = warp + kWarps * u;
-      if (t >= n || !mask_s[t]) continue;
-      float part[G];
+    for (int i = 0; i < kLoads; ++i) {
+      float kf[kVec];
+      Pack<T>::unpack(kv_s[i * kThreads + tid], kf);
+      float pg[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) pg[g] += q_r[g][e] * kf[e];
+      reinterpret_cast<float4*>(kv_s)[i * kThreads + tid] =
+          make_float4(pg[0], pg[1], pg[2], pg[3]);
+    }
+    __syncthreads();
+    for (int j = tid; j < tn; j += kThreads) {
+      float sg[4];
+      row_sums(part, y, j, sg);
+      float rs = 0.f;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        part[g] = 0.f;
-#pragma unroll
-        for (int j = 0; j < kHdPerLane; ++j) part[g] += q_r[g][j] * kv[u][j];
+        s_s[g][j] = sg[g];
+        rs += fabsf(sg[g]);
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          part[g] += __shfl_xor_sync(0xffffffffu, part[g], o);
-      if (lane == 0) {
-        float r = 0.f;
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          s_s[g * kChunk + t] = part[g];
-          r += fabsf(part[g]);
-        }
-        relp_b[s0 + t] = r;
-      }
+      relp_b[idx_s[i0 + j]] = rs;
     }
     __syncthreads();
 
-    // running max and probabilities (0 on inactive slots): one warp per row
-    for (int g = warp; g < G; g += kWarps) {
+    // running max and probabilities: one warp per query row
+    if (warp < G) {
+      const int g = warp;
       float mx = kNegInf;
-      for (int t = lane; t < n; t += 32)
-        if (mask_s[t]) mx = fmaxf(mx, s_s[g * kChunk + t] * scale);
+      for (int j = lane; j < tn; j += 32) mx = fmaxf(mx, s_s[g][j] * scale);
       mx = warp_max(mx);
       const float m_prev = m_s[g];
       const float m_new = fmaxf(m_prev, mx);
       float lsum = 0.f;
-      for (int t = lane; t < kChunk; t += 32) {
-        float pr = 0.f;
-        if (t < n && mask_s[t]) pr = expf(s_s[g * kChunk + t] * scale - m_new);
-        s_s[g * kChunk + t] = pr;
+      for (int j = lane; j < tn; j += 32) {
+        const float pr = expf(s_s[g][j] * scale - m_new);
+        s_s[g][j] = pr;
         lsum += pr;
       }
       lsum = warp_sum(lsum);
@@ -199,104 +425,123 @@ freeze_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // rescale, then accumulate P.V for this thread's rows at column d_own
-    // over chunks of kVChunk slots: the block loads a chunk's V rows into
-    // shared memory in one coalesced wave (0 on inactive slots), then each
-    // thread reads its column from there
+    // rescale, then P.V over this thread's rows at chunk c (rows past the
+    // last have p = 0 and zero-filled V)
 #pragma unroll
-    for (int j = 0; j < kRows; ++j)
-      if (g0 + gstep * j < G) acc[j] *= corr_s[g0 + gstep * j];
-    for (int tc = 0; tc < n; tc += kVChunk) {
-#pragma unroll 8
-      for (int e = tid; e < kVChunk * hd; e += kThreads) {
-        const int t = tc + (e >> hd_shift), d = e & (hd - 1);
-        v_s[e] = (t < n && mask_s[t])
-            ? to_f32(vb[(size_t)(s0 + t) * tok_stride + d]) : 0.f;
-      }
-      __syncthreads();
-      const int tn = min(kVChunk, n - tc);
-      for (int u = 0; u < tn; ++u) {
-        const float vu = v_s[u * hd + d_own];
+    for (int g = 0; g < G; ++g) {
+      const float corr = corr_s[g];
 #pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          const int g = g0 + gstep * j;
-          if (g < G) acc[j] += s_s[g * kChunk + tc + u] * vu;
-        }
-      }
-      __syncthreads();
+      for (int e = 0; e < kVec; ++e) acc[g][e] *= corr;
     }
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int j = i * y.rpp + y.r;
+      float vf[kVec];
+      Pack<T>::unpack(kv_s[(kLoads + i) * kThreads + tid], vf);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float pr = j < tn ? s_s[g][j] : 0.f;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[g][e] += pr * vf[e];
+      }
+    }
+    __syncthreads();               // s_s and kv_s are rewritten next
   }
 
-  // this split's unnormalised partials; l = 0 marks a split with nothing
-  // active, whose acc the merge never reads
+  // this chunk's unnormalised partials; l = 0 marks a chunk with nothing
+  // active, whose acc is 0 and not merged
   if (tid < G) {
     float* ml = part_ml + (((size_t)b * H + kh * G + tid) * n_split + z) * 2;
     ml[0] = m_s[tid];
     ml[1] = l_s[tid];
   }
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    const int g = g0 + gstep * j;
-    if (g >= G) continue;
-    part_acc[(((size_t)b * H + kh * G + g) * n_split + z) * hd + d_own] =
-        acc[j];
-  }
+  write_acc<G, kVec>(kv_s, y, acc,
+                     part_acc + (((size_t)b * H + kh * G) * n_split + z) * hd,
+                     (size_t)n_split * hd, hd);
 }
 
-// out[b, h] = sum_z e^(m_z - M) acc_z / sum_z e^(m_z - M) l_z over the
-// splits z with l_z > 0, in index order; zeros when no split had an active
-// slot.  A block per (b, h), a thread per output column.
+// The first ceil(B*H / kWarps) blocks: a warp per row (b, h) of out from
+// the chunks' partials (merge_row).  The blocks after them, a thread per slot: rel[b, s] =
+// active ? sum_kh relp[b, kh, s] / H : 0, kv heads summed in index order,
+// their partials loaded kBatch at a time.
 template <typename T>
-__global__ void merge_splits_kernel(const float* __restrict__ part_ml,
-                                    const float* __restrict__ part_acc,
-                                    T* __restrict__ out, int n_split,
-                                    int hd) {
-  const int bh = blockIdx.x, d = threadIdx.x;
-  const float* ml = part_ml + (size_t)bh * n_split * 2;
-  float m = kNegInf;
-  for (int z = 0; z < n_split; ++z)
-    if (ml[2 * z + 1] > 0.f) m = fmaxf(m, ml[2 * z]);
-  float l = 0.f, acc = 0.f;
-  for (int z = 0; z < n_split; ++z) {
-    const float lz = ml[2 * z + 1];
-    if (lz > 0.f) {
-      const float w = expf(ml[2 * z] - m);
-      l += w * lz;
-      acc += w * part_acc[((size_t)bh * n_split + z) * hd + d];
-    }
+__global__ void __launch_bounds__(kThreads)
+freeze_combine_kernel(const float* __restrict__ part_ml,
+                      const float* __restrict__ part_acc,
+                      const float* __restrict__ relp,
+                      const uint8_t* __restrict__ mask, T* __restrict__ out,
+                      float* __restrict__ rel, int B, int H, int S, int KVH,
+                      int hd, int n_split) {
+  wait_for_primary();
+  constexpr int kBatch = 8;
+  const int n_merge = (B * H + kWarps - 1) / kWarps;
+  if ((int)blockIdx.x < n_merge) {
+    const size_t bh = (size_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+    if (bh < (size_t)B * H)
+      merge_row(part_ml + bh * n_split * 2, part_acc + bh * n_split * hd,
+                out + bh * hd, n_split, hd);
+    return;
   }
-  store_f32(l > 0.f ? acc / fmaxf(l, 1e-30f) : 0.f, &out[(size_t)bh * hd + d]);
-}
-
-// rel[b, s] = active ? sum_kh relp[b, kh, s] / H : 0, kv heads summed in
-// index order (deterministic); the partials of inactive slots are never read
-__global__ void slot_relevance_kernel(const float* __restrict__ relp,
-                                      const uint8_t* __restrict__ mask,
-                                      float* __restrict__ rel, int B, int S,
-                                      int H, int KVH) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * S) return;
+  const size_t i = (size_t)(blockIdx.x - n_merge) * kThreads + threadIdx.x;
+  if (i >= (size_t)B * S) return;
   if (!mask[i]) {
     rel[i] = 0.f;
     return;
   }
-  const int b = i / S, s = i - b * S;
+  const size_t b = i / S, s = i - b * S;
+  const float* rp = relp + b * KVH * S + s;
   float r = 0.f;
-  for (int kh = 0; kh < KVH; ++kh) r += relp[((size_t)b * KVH + kh) * S + s];
+  for (int k0 = 0; k0 < KVH; k0 += kBatch) {
+    float part[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      part[j] = k0 + j < KVH ? rp[(size_t)(k0 + j) * S] : 0.f;
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (k0 + j < KVH) r += part[j];
+  }
   rel[i] = r / (float)H;
 }
 
+// Launches `kernel` (blocks x kThreads) on `s` as a programmatic dependent
+// of the kernel before it on the stream.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), unsigned blocks,
+                             cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 template <typename T>
-cudaError_t launch_attn(int G, dim3 grid, cudaStream_t s, const void* q,
-                        const void* k, const void* v, const uint8_t* mask,
-                        void* out, float* ml, float* acc, float* rp, int S,
-                        int KVH, int hd, int chunks_per_split, float scale) {
+cudaError_t launch(int G, cudaStream_t s, const void* q, const void* k,
+                   const void* v, const uint8_t* mask, void* out, float* rel,
+                   float* scratch, int B, int S, int H, int KVH, int hd,
+                   int chunk, int vec, float scale) {
+  const int n_split = (S + chunk - 1) / chunk;
+  float* part_ml = scratch;        // first: its float2 reads stay aligned
+  float* part_acc = part_ml + (size_t)B * H * n_split * 2;
+  float* relp = part_acc + (size_t)B * H * n_split * hd;
+  const dim3 grid(n_split, KVH, B);
+#define FREEZE_ATTN_ARGS                                                     \
+  static_cast<const T*>(q), static_cast<const T*>(k),                        \
+      static_cast<const T*>(v), mask, part_ml, part_acc, relp, S, KVH, hd,   \
+      chunk, scale
 #define FREEZE_ATTN_CASE(NG)                                                 \
   case NG:                                                                   \
-    freeze_attn_kernel<T, NG><<<grid, kThreads, 0, s>>>(                     \
-        static_cast<const T*>(q), static_cast<const T*>(k),                  \
-        static_cast<const T*>(v), mask, ml, acc, rp, S, KVH, hd,             \
-        chunks_per_split, scale);                                            \
+    if (vec)                                                                 \
+      freeze_attn_kernel<T, NG, true><<<grid, kThreads, 0, s>>>(             \
+          FREEZE_ATTN_ARGS);                                                 \
+    else                                                                     \
+      freeze_attn_kernel<T, NG, false><<<grid, kThreads, 0, s>>>(            \
+          FREEZE_ATTN_ARGS);                                                 \
     break;
   switch (G) {
     FREEZE_ATTN_CASE(1)
@@ -306,45 +551,42 @@ cudaError_t launch_attn(int G, dim3 grid, cudaStream_t s, const void* q,
       return cudaErrorInvalidValue;
   }
 #undef FREEZE_ATTN_CASE
+#undef FREEZE_ATTN_ARGS
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge_splits_kernel<T><<<grid.x * grid.y * G, hd, 0, s>>>(
-      ml, acc, static_cast<T*>(out), grid.z, hd);
-  return cudaGetLastError();
+  const size_t blocks = ((size_t)B * H + kWarps - 1) / kWarps +
+                        ((size_t)B * S + kThreads - 1) / kThreads;
+  return launch_dependent(freeze_combine_kernel<T>, (unsigned)blocks, s,
+                          part_ml, part_acc, relp, mask,
+                          static_cast<T*>(out), rel, B, H, S, KVH, hd,
+                          n_split);
 }
 
 }  // namespace
 
-// Launches the three kernels on `stream`; returns the first launch error,
-// else cudaGetLastError().  Pointers: q (B,H,hd), k/v (B,S,KVH,hd) of type
-// T (is_bf16 ? bf16 : f32); active_mask (B,S) as bytes; out (B,H,hd) T;
-// rel (B,S) f32; scratch: part_ml (B,H,n_split,2) f32, part_acc
-// (B,H,n_split,hd) f32 and relp (B,KVH,S) f32.  All contiguous; n_split
-// >= 1, H / KVH 1, 2 or 4 and hd a power of two up to 128.
+// Launches the two kernels on `stream`; returns the first launch error.
+// Pointers: q (B,H,hd), k/v (B,S,KVH,hd) of type T (is_bf16 ? bf16 : f32);
+// active_mask (B,S) as bytes; out (B,H,hd) T; rel (B,S) f32; scratch f32
+// of B*H*n_split*(hd+2) + B*KVH*S elements, n_split = ceil(S / chunk).
+// All contiguous; `vec` says q, k and v are 16-byte aligned and hd *
+// sizeof(T) >= 16.  chunk is a multiple of 32 up to 256, H / KVH 1, 2 or
+// 4 and hd a power of two up to 128.
 extern "C" int freeze_decode_attention_launch(
     const void* q, const void* k, const void* v, const void* active_mask,
-    void* out, void* rel, void* part_ml, void* part_acc, void* relp, int B,
-    int S, int H, int KVH, int hd, int n_split, int is_bf16, float scale,
-    void* stream) {
-  if (n_split < 1) return static_cast<int>(cudaErrorInvalidValue);
+    void* out, void* rel, void* scratch, int B, int S, int H, int KVH,
+    int hd, int chunk, int is_bf16, int vec, float scale, void* stream) {
+  if (chunk < 32 || chunk > kMaxChunk || chunk % 32 || hd > kMaxHd ||
+      hd & (hd - 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_chunks = (S + kChunk - 1) / kChunk;
-  const int per = (n_chunks + n_split - 1) / n_split;
-  const dim3 grid(B, KVH, n_split);
   const auto* mask = static_cast<const uint8_t*>(active_mask);
-  auto* ml = static_cast<float*>(part_ml);
-  auto* acc = static_cast<float*>(part_acc);
-  auto* rp = static_cast<float*>(relp);
+  auto* rl = static_cast<float*>(rel);
+  auto* scr = static_cast<float*>(scratch);
   const int G = H / KVH;
   const cudaError_t err =
-      is_bf16 ? launch_attn<__nv_bfloat16>(G, grid, s, q, k, v, mask, out,
-                                           ml, acc, rp, S, KVH, hd, per,
-                                           scale)
-              : launch_attn<float>(G, grid, s, q, k, v, mask, out, ml, acc,
-                                   rp, S, KVH, hd, per, scale);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n = B * S;
-  slot_relevance_kernel<<<(n + 255) / 256, 256, 0, s>>>(
-      rp, mask, static_cast<float*>(rel), B, S, H, KVH);
-  return static_cast<int>(cudaGetLastError());
+      is_bf16 ? launch<__nv_bfloat16>(G, s, q, k, v, mask, out, rl, scr, B,
+                                      S, H, KVH, hd, chunk, vec, scale)
+              : launch<float>(G, s, q, k, v, mask, out, rl, scr, B, S, H,
+                              KVH, hd, chunk, vec, scale);
+  return static_cast<int>(err);
 }

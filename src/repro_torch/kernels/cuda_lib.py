@@ -118,6 +118,14 @@ def check_tensor(t, name: str, shape, dtypes, device=None) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def vector_loads(q, *kv) -> bool:
+    """Whether the attention kernels may load 16 bytes at a time: a head
+    row of ``q``'s dtype is a whole number of 16-byte words and every float
+    input is 16-byte aligned (else they load element by element)."""
+    return q.shape[-1] * q.element_size() % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (q, *kv))
+
+
 def stream_ptr(device) -> int:
     """PyTorch's current stream on ``device``, for a launch."""
     return torch.cuda.current_stream(device).cuda_stream

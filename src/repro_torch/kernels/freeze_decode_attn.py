@@ -1,10 +1,12 @@
 """Hand-written CUDA freeze-masked decode attention over a contiguous cache
 (``csrc/freeze_decode_attn.cu``) and its ctypes binding
 (``cuda_lib.CudaLibrary``: built with ``nvcc`` for ``sm_90a`` at first use,
-never at import).  The kernel launches on PyTorch's current stream; the
-wrapper allocates the outputs and the scratch (per-split softmax partials,
-per-kv-head relevance partials) with ``torch.empty``, validates every
-input, and raises on anything the kernel does not take.  ``freeze_decode_attention_cuda.launches`` counts launches.
+never at import).  A call is two kernel launches on PyTorch's current
+stream (the chunked attention pass and the combine); the wrapper allocates
+the outputs and one f32 scratch (per-chunk softmax partials, per-kv-head
+relevance partials) with ``torch.empty``, validates every input, and
+raises on anything the kernel does not take.
+``freeze_decode_attention_cuda.launches`` counts calls that launched.
 """
 from __future__ import annotations
 
@@ -14,24 +16,20 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.cuda_lib import CudaLibrary, check_tensor, stream_ptr
+from repro_torch.kernels.cuda_lib import (CudaLibrary, check_tensor,
+                                       stream_ptr, vector_loads)
 
 LIB = CudaLibrary("freeze_decode_attn", "freeze_decode_attention_launch",
-                  [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                   + [ctypes.c_float, ctypes.c_void_p])
 build, load = LIB.build, LIB.load
 # what the kernel is compiled for: query rows per kv head (those of the
 # configs and contract cases) and head_dim a power of two up to 128
 GROUPS, MAX_HD = (1, 2, 4), 128
-# the kernel walks S in chunks of CHUNK slots (kChunk in the source); the
-# walk is split across blocks so that about TARGET_BLOCKS run (~4 per SM of
-# a 132-SM H100)
-CHUNK, TARGET_BLOCKS = 128, 512
-
-
-def n_splits(B: int, S: int, KVH: int) -> int:
-    """How many blocks share one (lane, kv head)'s walk over S."""
-    return min(-(-S // CHUNK), -(-TARGET_BLOCKS // (B * KVH)))
+# one block of the attention pass takes CHUNK consecutive slots of one
+# (lane, kv head): a multiple of 32 up to 256 (B * KVH * 16 blocks at the
+# main path's S = 2048)
+CHUNK = 128
 
 
 def freeze_decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -58,18 +56,15 @@ def freeze_decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         check_tensor(t, name, shape, dts, dev)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)
     rel = torch.empty((B, S), dtype=torch.float32, device=dev)
-    relp = torch.empty((B, KVH, S), dtype=torch.float32, device=dev)
-    n_split = n_splits(B, S, KVH)
-    part_ml = torch.empty((B, H, n_split, 2), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((B, H, n_split, hd), dtype=torch.float32,
-                           device=dev)
+    n_split = -(-S // CHUNK)
+    scratch = torch.empty(B * H * n_split * (hd + 2) + B * KVH * S,
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         LIB.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    active_mask.data_ptr(), out.data_ptr(), rel.data_ptr(),
-                   part_ml.data_ptr(), part_acc.data_ptr(), relp.data_ptr(),
-                   B, S, H, KVH, hd, n_split,
-                   int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd),
-                   stream_ptr(dev))
+                   scratch.data_ptr(), B, S, H, KVH, hd, CHUNK,
+                   int(q.dtype == torch.bfloat16), int(vector_loads(q, k, v)),
+                   1.0 / math.sqrt(hd), stream_ptr(dev))
     freeze_decode_attention_cuda.launches += 1
     return out, rel
 

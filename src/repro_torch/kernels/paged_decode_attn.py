@@ -1,10 +1,12 @@
 """Hand-written CUDA paged decode-attention kernel (``csrc/
 paged_decode_attn.cu``) and its ctypes binding (``cuda_lib.CudaLibrary``:
 built with ``nvcc`` for ``sm_90a`` at first use, never at import).  The
-kernel launches on PyTorch's current stream; the wrapper allocates the
-outputs and the relevance scratch with ``torch.empty``, validates every
-input, and raises on anything the kernel does not take.
-``paged_decode_attention_cuda.launches`` counts launches.
+call is two kernel launches on PyTorch's current stream (the split
+attention pass and the combine); the wrapper allocates the outputs and one
+f32 scratch (the splits' softmax partials, per-kv-head relevance partials
+and valid-slot counts) with ``torch.empty``, validates every input, and
+raises on anything the kernel does not take.
+``paged_decode_attention_cuda.launches`` counts calls that launched.
 """
 from __future__ import annotations
 
@@ -15,18 +17,28 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.cuda_lib import (CudaLibrary, check_tensor,
-                                       nvcc_path, stream_ptr)
+                                       nvcc_path, stream_ptr, vector_loads)
 
 LIB = CudaLibrary("paged_decode_attn", "paged_decode_attention_launch",
-                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                   + [ctypes.c_float, ctypes.c_void_p])
 build, load = LIB.build, LIB.load
 # what the kernel is compiled for: query rows per kv head (those of the
 # configs and contract cases), head_dim a power of two up to 128, and pages
 # of at most 256 slots
 GROUPS, MAX_HD, MAX_PAGE = (1, 2, 4), 128, 256
-__all__ = ["GROUPS", "LIB", "build", "load", "nvcc_path",
-           "paged_decode_attention_cuda"]
+# a lane's page walk is cut into at most PAGE_SPLITS blocks of
+# pages_per_block(P) consecutive pages each (one page a block at the main
+# path's P = 8: B * KVH * 8 blocks)
+PAGE_SPLITS = 8
+__all__ = ["GROUPS", "LIB", "PAGE_SPLITS", "build", "load", "nvcc_path",
+           "pages_per_block", "paged_decode_attention_cuda"]
+
+
+def pages_per_block(P: int) -> int:
+    """Consecutive pages one block of the attention pass walks."""
+    return -(-P // PAGE_SPLITS)
+
 
 
 def paged_decode_attention_cuda(
@@ -74,17 +86,21 @@ def paged_decode_attention_cuda(
             ("page_quant", page_quant, (B, P), (torch.int32,)),
             ("kv_scales", kv_scales, (B, P, 2, KVH), (torch.float32,))):
         check_tensor(t, name, shape, dts, dev)
+    ppb = pages_per_block(P)
+    n_split = -(-P // ppb)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)
     rel = torch.empty((B, P), dtype=torch.float32, device=dev)
-    relp = torch.empty((B, KVH, P), dtype=torch.float32, device=dev)
+    scratch = torch.empty(B * H * n_split * (hd + 2) + B * KVH * P + B * P,
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         LIB.launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             slot_mask.data_ptr(), page_table.data_ptr(),
             page_visible.data_ptr(), page_quant.data_ptr(),
             kv_scales.data_ptr(), out.data_ptr(), rel.data_ptr(),
-            relp.data_ptr(), B, P, page, H, KVH, hd,
-            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd),
+            scratch.data_ptr(), B, P, page, H, KVH, hd,
+            int(q.dtype == torch.bfloat16), ppb,
+            int(vector_loads(q, k_pages, v_pages)), 1.0 / math.sqrt(hd),
             stream_ptr(dev))
     paged_decode_attention_cuda.launches += 1
     return out, rel

@@ -1,7 +1,9 @@
 """Card-only tests of the port: each hand-written CUDA kernel (paged decode
 attention, freeze-masked decode attention, the fused freeze update)
-against its plain PyTorch version on every contract case, and the tiny
-paged and contiguous engines on the card going through the kernels.  They
+against its plain PyTorch version on every contract case, each attention
+kernel's determinism (two calls on the same inputs, bit-identical), and
+the tiny paged and contiguous engines on the card going through the
+kernels.  They
 need a CUDA device and ``nvcc``; elsewhere they skip.  Run them on the card
 with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -73,11 +75,63 @@ def test_kernel_contract_pairs(card, pair):
         np.testing.assert_array_equal(rel_a[:, p], 0.0)
 
 
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_is_deterministic(card, name):
+    """The split walk's combine has a fixed order: a second call on the
+    same inputs gives the same bits."""
+    case = CASES[name]
+    first = _run(K.paged_decode_attention_cuda, case.inputs, case.dtype,
+                 card)
+    second = _run(K.paged_decode_attention_cuda, case.inputs, case.dtype,
+                  card)
+    for a, b in zip(first, second):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_kernel_dead_lane_outputs_zeros(card):
     out, rel = _run(K.paged_decode_attention_cuda, C.dead_lane_inputs(),
                     "float32", card)
     np.testing.assert_array_equal(out[0], 0.0)
     np.testing.assert_array_equal(rel[0], 0.0)
+
+
+def _unaligned(t):
+    """The same values one element into a fresh buffer: contiguous, but
+    not 16-byte aligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("layout", ["unaligned", "narrow"])
+@pytest.mark.parametrize("dtype", C.DTYPES)
+def test_kernels_load_element_wise(card, layout, dtype):
+    """Rows shorter than 16 bytes, or inputs off a 16-byte boundary, take
+    the kernels' element-wise loads instead of cp.async."""
+    hd = {"unaligned": 64, "narrow": 4 if dtype == "bfloat16" else 1}[layout]
+    rng = np.random.RandomState(31)
+    x = dict(C._qkv(rng, 2, 5, 16, 4, 2, hd),
+             slot_mask=rng.rand(2, 5, 16) < 0.7)
+    x["slot_mask"][:, 0, 0] = True
+    args = C.call_args(C.to_torch(x, dtype, card))
+    if layout == "unaligned":
+        args[:3] = [_unaligned(t) for t in args[:3]]
+    out_k, rel_k = K.paged_decode_attention_cuda(*args)
+    out_p, rel_p = paged_decode_attention_ref(*args)
+    np.testing.assert_allclose(out_k.float().cpu(), out_p.float().cpu(),
+                               **C.TOLS[dtype])
+    np.testing.assert_allclose(rel_k.cpu(), rel_p.cpu(), **C.TOLS[dtype])
+    m = dict(CC._qkv(rng, 2, 300, 4, 1, hd, dtype),
+             active_mask=rng.rand(2, 300) < 0.5)
+    margs = list(CC.attn_args(m, dtype, card))
+    if layout == "unaligned":
+        margs[:3] = [_unaligned(t) for t in margs[:3]]
+    out_k, rel_k = K2.freeze_decode_attention_cuda(*margs)
+    out_p, rel_p = freeze_decode_attention_ref(*margs)
+    np.testing.assert_allclose(out_k.float().cpu(), out_p.float().cpu(),
+                               **C.TOLS[dtype])
+    np.testing.assert_allclose(rel_k.cpu(), rel_p.cpu(), **C.TOLS[dtype])
 
 
 def test_tiny_engine_runs_through_the_kernel(card):
@@ -119,6 +173,17 @@ def test_masked_kernel_matches_plain_version(card, name):
     np.testing.assert_allclose(out_k, out_p, **case.tols)
     np.testing.assert_allclose(rel_k, rel_p, **case.tols)
     np.testing.assert_array_equal(rel_k[~case.inputs["active_mask"]], 0.0)
+
+
+@pytest.mark.parametrize("name", sorted(ATTN_CASES))
+def test_masked_kernel_is_deterministic(card, name):
+    case = ATTN_CASES[name]
+    first = _run_masked(K2.freeze_decode_attention_cuda, case.inputs,
+                        case.dtype, card)
+    second = _run_masked(K2.freeze_decode_attention_cuda, case.inputs,
+                         case.dtype, card)
+    for a, b in zip(first, second):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_masked_kernel_skips_inactive_block(card):
