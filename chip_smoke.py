@@ -15,11 +15,15 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      the serving shape; the freeze-masked decode-attention kernel on the
      sweep of tests/test_kernels.py, a ragged S, a skipped block, a dead
      lane and the main-path shape; the fused freeze update on its sweep
-     with scalar and per-lane clocks and fixed and quantile tau, exactly;
-     each attention kernel called twice on every case must give
-     bit-identical outputs and relevance (its combine is deterministic),
-     and makes at most two kernel launches a call (counted by the
-     profiler at the main-path shape);
+     with scalar and per-lane clocks and fixed and quantile tau and on the
+     cases aimed at its threshold (ties, NaN, 0/1 eligible slots, S = 1,
+     ragged and long rows), exactly: with the threshold given, and with it
+     taken in the kernel out of place (twice, bit-identical) and in place,
+     its active count and threshold checked too; each attention kernel
+     called twice on every case must give bit-identical outputs and
+     relevance (its combine is deterministic), and makes at most two kernel
+     launches a call, the freeze update exactly one and no other device
+     work (counted by the profiler at the main-path shape);
   4. reference check — the tiny model at f32, greedy, served on the card
      through the kernels and on the CPU through the plain versions: the
      paged engine on a swapping trace and a thaw/rewind trace, the
@@ -31,13 +35,17 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      ``ContinuousEngine`` (freeze, host offload, recovery), each with no
      profiler attached and each kernel's launch counter read around the
      serve; a short profiled serve on each engine gives the device busy
-     share.  ``Engine.generate`` then runs the paper's Table-1 protocol
-     (14-token prompt, 500 new tokens) with freeze off and on;
+     share, aten ops, kernels and ``aten::sort`` calls a step.
+     ``Engine.generate`` then runs the paper's Table-1 protocol (14-token
+     prompt, 500 new tokens) with freeze off and on;
   6. kernel timing at the main-path shapes: device time per call from CUDA
-     graph replay over rotated K/V copies (read from HBM, as in the step),
-     the bound, the plain version, and a library yardstick the port never
-     calls (SDPA, over the same rotation) where one PyTorch call computes
-     the same function.
+     graph replay over rotated input copies (read from HBM, as in the
+     step), the bound, the plain version, and a library yardstick the port
+     never calls (SDPA, over the same rotation) where one PyTorch call
+     computes the same function; for the freeze update, which has none,
+     the two-stage path it replaced (PyTorch ``lane_tau``, then the kernel
+     with that tau), an empty kernel on its grid (the launch floor), and
+     its time at S = 8192 and 32768.
 The line before last is the kernels JSON, the last line the ``ok`` JSON;
 longer reports go to ``chiprun_out/``.
 """
@@ -51,6 +59,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -162,8 +171,6 @@ def phase_contiguous_kernel_cases(torch, CC, K2, K3, R, report):
     (tolerance by dtype, relevance exactly 0 on inactive slots), the
     skipped-block and dead-lane contracts, and the fused freeze update
     against its plain version with exact equality on every case."""
-    from repro_torch.configs.base import FreezeConfig
-    from repro_torch.core.freeze import lane_tau
     dev = torch.device("cuda")
 
     def run(fn, inputs, dtype):
@@ -201,29 +208,68 @@ def phase_contiguous_kernel_cases(torch, CC, K2, K3, R, report):
     assert np.isfinite(out_k).all()
     report.write("skipped_block: matches, relevance 0; dead_lane: zeros\n")
     main = CC.main_path_case().name
-    n_exact = 0
-    for case in CC.freeze_cases():
-        cfg = FreezeConfig(**case.cfg)
-        state, rel, pos, step = CC.freeze_args(case, dev)
-        tau = lane_tau(state, rel, pos, cfg)
-        new_k, act_k = K3.relevance_freeze_cuda(state, rel, pos, step, tau,
-                                                cfg)
-        new_p, act_p = R.relevance_freeze_ref(state, rel, pos, step, tau,
-                                              cfg)
-        torch.cuda.synchronize()
-        for f in ("c", "d", "frozen", "frozen_at"):
-            a, b = getattr(new_k, f), getattr(new_p, f)
-            assert a.dtype == b.dtype and torch.equal(a, b), (case.name, f)
-        assert torch.equal(act_k, act_p), case.name
-        n_exact += 1
-        report.write(f"{case.name}: exact ({int(new_k.frozen.sum())} "
-                     f"frozen)\n")
+    freeze_cases = CC.freeze_cases()
+    for case in freeze_cases:
+        _freeze_case(torch, CC, K3, R, case, dev, report)
     log(f"contiguous kernel cases: {len(worst)} masked-attention tolerance "
         f"cases (each bit-identical over two calls) + skipped block + dead "
         f"lane passed, worst |kernel - plain| "
         f"{max(worst.values()):.3e}, at the main-path shape "
-        f"{worst[main]:.3e}; {n_exact} freeze-update cases bit-exact")
+        f"{worst[main]:.3e}; {len(freeze_cases)} freeze-update cases "
+        f"bit-exact with "
+        f"the threshold given and with it taken in the kernel (out of "
+        f"place twice, bit-identical, and in place)")
     return worst[main]
+
+
+def _freeze_case(torch, CC, K3, R, case, dev, report):
+    """The fused freeze update on one case, exactly against its plain
+    version: with the (B,) threshold given (the Pallas kernel's function),
+    then with it taken inside the kernel (``tau=None``) out of place twice
+    (bit-identical) and in place; the active-count accumulator equals the
+    mask's lane sums and the kernel's threshold equals ``lane_tau`` as a
+    float (a zero may differ in its sign)."""
+    from repro_torch.configs.base import FreezeConfig
+    from repro_torch.core.freeze import FreezeState, lane_tau
+    cfg = FreezeConfig(**case.cfg)
+    args = CC.freeze_args(case, dev)
+    state, rel, pos, step = args
+    tau = lane_tau(state, rel, pos, cfg)
+    B = rel.shape[0]
+
+    def same(new, act, new_p, act_p, what):
+        for f in FreezeState._fields:
+            a, b = getattr(new, f), getattr(new_p, f)
+            assert a.dtype == b.dtype and torch.equal(a, b), \
+                (case.name, what, f)
+        assert torch.equal(act, act_p), (case.name, what)
+
+    new_k, act_k = K3.relevance_freeze_cuda(*args, cfg, tau=tau)
+    new_p, act_p = R.relevance_freeze_ref(*args, cfg, tau=tau)
+    torch.cuda.synchronize()
+    same(new_k, act_k, new_p, act_p, "given tau")
+    new_p, act_p = R.relevance_freeze_ref(*args, cfg)
+    runs = []
+    for in_place in (False, False, True):
+        count = torch.zeros((B,), dtype=torch.int32, device=dev)
+        tau_k = torch.empty((B,), dtype=torch.float32, device=dev)
+        src = FreezeState(*(t.clone() for t in state)) if in_place \
+            else state
+        new, act = K3.relevance_freeze_cuda(
+            src, rel, pos, step, cfg, out=src if in_place else None,
+            active_count=count, tau_out=tau_k)
+        torch.cuda.synchronize()
+        what = "in place" if in_place else "fused"
+        same(new, act, new_p, act_p, what)
+        assert torch.equal(count, act_p.sum(-1, dtype=torch.int32)), \
+            (case.name, what)
+        assert torch.equal(tau_k, tau), (case.name, what, tau_k, tau)
+        runs.append([*new, act, count, tau_k.view(torch.int32)])
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b), (case.name, "second call")
+    report.write(f"{case.name}: exact, given and fused, in and out of "
+                 f"place ({int(new_p.frozen.sum())} frozen; tau "
+                 f"{tau.tolist()[:4]})\n")
 
 
 PROFILE_STEPS = range(8, 13)     # pure decode steps of the profiled serve
@@ -283,15 +329,17 @@ def _profile_summary(torch, prof, wall_ms, card_line, tag):
                             getattr(e, "self_cuda_time_total", 0))
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == cuda_t and dev(e) > 0]
-    ops = sum(e.count for e in events
-              if e.device_type != cuda_t and e.key.startswith("aten::"))
+    host = [e for e in events if e.device_type != cuda_t]
+    ops = sum(e.count for e in host if e.key.startswith("aten::"))
+    sorts = sum(e.count for e in host if e.key == "aten::sort")
     busy_ms = sum(dev(e) for e in kernels) / 1e3
     lines = [f"profile {tag} [{card_line}] over {n} pure decode steps "
              f"({wall_ms / n:.2f} ms each): device busy {busy_ms / n:.2f} ms "
              f"a step = {100 * busy_ms / max(wall_ms, 1e-9):.1f}% "
              f"(idle {100 - 100 * busy_ms / max(wall_ms, 1e-9):.1f}%); "
              f"{ops / n:.0f} aten ops and "
-             f"{sum(e.count for e in kernels) / n:.0f} kernels a step"]
+             f"{sum(e.count for e in kernels) / n:.0f} kernels a step; "
+             f"{sorts / n:.1f} aten::sort calls a step"]
     for e in sorted(kernels, key=dev, reverse=True)[:10]:
         lines.append(f"  {dev(e) / 1e3 / n:8.3f} ms/step  {e.count // n:5d}x"
                      f"  {e.key[:90]}")
@@ -412,13 +460,14 @@ class _MarginRecorder:
         self.orig = ops.freeze_state_update
         self.margins = []
 
-    def __call__(self, state, rel, pos, step, cfg):
+    def __call__(self, state, rel, pos, step, cfg, **kw):
+        # taken before the call: the decode step updates ``state`` in place
         tau = self.freeze.lane_tau(state, rel, pos, cfg)
         elig = self.freeze.eligible_mask(state, pos, cfg)
         diff = (rel.float() - tau[:, None]).abs()
         gap = self.torch.where(elig & (diff > 0), diff, float("inf"))
         self.margins.append(gap.min())
-        return self.orig(state, rel, pos, step, cfg)
+        return self.orig(state, rel, pos, step, cfg, **kw)
 
     def __enter__(self):
         self.ops.freeze_state_update = self
@@ -722,9 +771,12 @@ def _graph_ms(torch, fn, n_inner, replays=40):
             fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(n_inner):
-            fn(i)
+    with warnings.catch_warnings():
+        # an empty graph would time nothing: fail instead
+        warnings.filterwarnings("error", message=".*CUDA Graph is empty")
+        with torch.cuda.graph(graph):
+            for i in range(n_inner):
+                fn(i)
     graph.replay()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -736,12 +788,35 @@ def _graph_ms(torch, fn, n_inner, replays=40):
     return start.elapsed_time(end) / (replays * n_inner)
 
 
-def phase_launch_counts(torch, C, CC, K, K2):
-    """Kernel launches a call of each attention kernel at its main-path
-    shape, read from the device trace of one profiler session (the run's
-    first, before the serves' windows) over ``calls`` calls each."""
-    calls = 8
+def _device_events(torch, fns, calls):
+    """Device-side profiler events of ``calls`` calls of each of ``fns``
+    in one session (retried: a session that records no kernel at all is
+    the profiler's failure, not ours)."""
     cuda_t = torch.autograd.DeviceType.CUDA
+    for fn in fns:
+        fn()
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                for _ in range(calls):
+                    fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == cuda_t]
+        if events:
+            return events
+    return events
+
+
+def phase_launch_counts(torch, C, CC, K, K2, K3):
+    """Kernel launches a call of each kernel at its main-path shape, read
+    from the device trace of profiler sessions (the run's first, before
+    the serves' windows) over ``calls`` calls each; the freeze update, in
+    a session of its own, must be its one kernel and nothing else."""
+    from repro_torch.configs.base import FreezeConfig
+    from repro_torch.core.freeze import FreezeState
+    calls = 8
     x = C.call_args(C.to_torch(C.main_path_case().inputs, "bfloat16", "cuda"))
     case2 = CC.main_path_case()
     x2 = CC.attn_args(case2.inputs, case2.dtype, "cuda")
@@ -751,26 +826,29 @@ def phase_launch_counts(torch, C, CC, K, K2):
             "freeze_decode_attention": (
                 lambda: K2.freeze_decode_attention_cuda(*x2),
                 ("freeze_attn_kernel", "freeze_combine_kernel"))}
-    for fn, _ in runs.values():
-        fn()
-    for attempt in range(3):     # a session that records no kernel at all
-        torch.cuda.synchronize()  # is the profiler's failure, not ours
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for fn, _ in runs.values():
-                for _ in range(calls):
-                    fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == cuda_t]
-        if events:
-            break
+    events = _device_events(torch, [fn for fn, _ in runs.values()], calls)
     counts = {name: sum(e.count for e in events
                         if any(k in e.key for k in kernels)) / calls
               for name, (_, kernels) in runs.items()}
     for name, n in counts.items():
         assert 0 < n <= 2, (name, n, [e.key[:60] for e in events])
+    # the decode step's call: in place, no mask, the lane counts added
+    fcase = [c for c in CC.freeze_cases() if c.name.startswith("main-path")][0]
+    fcfg = FreezeConfig(**fcase.cfg)
+    fst, frel, fpos, fstep = CC.freeze_args(fcase, "cuda")
+    fst = FreezeState(*(t.clone() for t in fst))
+    fcount = torch.zeros((frel.shape[0],), dtype=torch.int32, device="cuda")
+    events = _device_events(torch, [lambda: K3.relevance_freeze_cuda(
+        fst, frel, fpos, fstep, fcfg, out=fst, active=False,
+        active_count=fcount)], calls)
+    keys = {e.key for e in events}
+    n3 = sum(e.count for e in events) / calls
+    assert n3 == 1 and all("relevance_freeze_kernel" in k for k in keys), \
+        (n3, keys)
+    counts["relevance_freeze_update"] = n3
     log("kernel launches a call (profiler): " + ", ".join(
-        f"{k} {v:g}" for k, v in counts.items()))
+        f"{k} {v:g}" for k, v in counts.items())
+        + " (the freeze update's only device work)")
     return counts
 
 
@@ -867,12 +945,84 @@ def phase_timing(torch, C, K, ref, card_line):
         "operations", lib_ms
 
 
+FREEZE_ROTATION = 400    # copies of the freeze inputs: 55.7 MB > the L2
+
+
+def _freeze_bound_ms(B, S):
+    """Bytes the decode step's freeze update must move: c, d, frozen_at,
+    relevance (4 B) and frozen (1 B) read, c, d, frozen_at (4 B) and
+    frozen (1 B) written a slot (the threshold reads the same relevance
+    and frozen, counted once; the decode step asks for no mask); pos and
+    step read and the active count read and written a lane."""
+    nbytes = B * S * (17 + 13) + B * 16
+    return nbytes, 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def _freeze_timing(torch, CC, K3, R, card_line):
+    """Kernel 3 as the decode step calls it (threshold inside, in place, no
+    mask, lane counts added) by CUDA-graph replay: over rotated copies of
+    its inputs (cold in L2, as a layer's state is a step later) and on one
+    copy (L2-resident, as PR 12/13 timed it); the empty kernel on its grid
+    (the launch floor); the plain version (``tau=None``); the two-stage
+    path it replaces (PyTorch ``lane_tau``, then the kernel with that tau),
+    a yardstick the port no longer runs; and the kernel at S = 8192 and
+    32768 (the single-block select's scaling)."""
+    from repro_torch.configs.base import FreezeConfig
+    from repro_torch.core.freeze import FreezeState, lane_tau
+    cases = {c.name: c for c in CC.freeze_cases()}
+    fcase = cases["main-path-4x2048"]
+    cfg = FreezeConfig(**fcase.cfg)
+    state, rel, pos, step = CC.freeze_args(fcase, "cuda")
+    B, S = rel.shape
+    count = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    rot = [(FreezeState(*(t.clone() for t in state)), rel.clone())
+           for _ in range(FREEZE_ROTATION)]
+
+    def fused(st, r):
+        K3.relevance_freeze_cuda(st, r, pos, step, cfg, out=st,
+                                 active=False, active_count=count)
+
+    cold = _graph_ms(torch, lambda i: fused(*rot[i % FREEZE_ROTATION]),
+                     FREEZE_ROTATION, replays=10)
+    del rot
+    one = FreezeState(*(t.clone() for t in state))
+    warm = _graph_ms(torch, lambda i: fused(one, rel), 12)
+    floor = _graph_ms(torch, lambda i: K3.launch_floor(B, "cuda"), 12)
+    plain = _graph_ms(torch, lambda i: R.relevance_freeze_ref(
+        state, rel, pos, step, cfg), 12)
+    two_stage = _graph_ms(torch, lambda i: K3.relevance_freeze_cuda(
+        one, rel, pos, step, cfg, tau=lane_tau(one, rel, pos, cfg), out=one,
+        active=False, active_count=count), 12)
+    nbytes, bound = _freeze_bound_ms(B, S)
+    log(f"timing relevance_freeze_update [{card_line}] at B={B} S={S}, "
+        f"threshold in the kernel, in place, as the decode step calls it: "
+        f"kernel {cold:.4f} ms over {FREEZE_ROTATION} rotated copies "
+        f"(L2-resident, one copy: {warm:.4f} ms), bound {bound:.5f} ms "
+        f"(bytes {nbytes}) = {100 * bound / cold:.1f}% of the published "
+        f"peak; empty kernel on its grid (launch floor) {floor:.4f} ms; "
+        f"plain version {plain:.4f} ms; two-stage yardstick (PyTorch "
+        f"lane_tau + the kernel with that tau, not run by the port) "
+        f"{two_stage:.4f} ms; no single PyTorch call computes it")
+    for S_long in (8192, 32768):
+        c = cases[f"long-4x{S_long}"]
+        st, r, p, sp = CC.freeze_args(c, "cuda")
+        st = FreezeState(*(t.clone() for t in st))
+        ccfg = FreezeConfig(**c.cfg)
+        ms = _graph_ms(torch, lambda i: K3.relevance_freeze_cuda(
+            st, r, p, sp, ccfg, out=st, active=False, active_count=count), 12)
+        nb, bd = _freeze_bound_ms(*r.shape)
+        log(f"timing relevance_freeze_update [{card_line}] at B={B} "
+            f"S={S_long} (keys re-read from global memory each pass), "
+            f"L2-resident: kernel {ms:.4f} ms, bound {bd:.5f} ms (bytes "
+            f"{nb}) = {100 * bd / ms:.1f}%")
+    return dict(ms=cold, plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                library_ms=None)
+
+
 def phase_contiguous_timing(torch, CC, K2, K3, R, card_line):
     """Kernels 2 and 3 at the contiguous main path's shape: device time per
     call by CUDA-graph replay, bound, plain version, library yardstick."""
     import torch.nn.functional as F
-    from repro_torch.configs.base import FreezeConfig
-    from repro_torch.core.freeze import lane_tau
     case = CC.main_path_case()
     q, k, v, mask = CC.attn_args(case.inputs, case.dtype, "cuda")
     B, S, H, KVH, hd = CC.MAIN_PATH_SHAPE
@@ -917,25 +1067,7 @@ def phase_contiguous_timing(torch, CC, K2, K3, R, card_line):
               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
               library_ms=lib_ms)
 
-    fcase = [c for c in CC.freeze_cases() if c.name.startswith("main-path")][0]
-    cfg = FreezeConfig(**fcase.cfg)
-    state, rel, pos, step = CC.freeze_args(fcase, "cuda")
-    tau = lane_tau(state, rel, pos, cfg)
-    fB, fS = rel.shape
-    ms3 = _graph_ms(torch, lambda i: K3.relevance_freeze_cuda(
-        state, rel, pos, step, tau, cfg), n_copies)
-    plain3 = _graph_ms(torch, lambda i: R.relevance_freeze_ref(
-        state, rel, pos, step, tau, cfg), n_copies)
-    # bound: c, d, frozen_at, relevance (4 B) and frozen (1 B) read; c, d,
-    # frozen_at (4 B), frozen and active (1 B) written; pos, step, tau
-    nbytes3 = fB * fS * (17 + 14) + fB * 12
-    bound3 = 1e3 * nbytes3 / HBM_BYTES_PER_S
-    log(f"timing relevance_freeze_update [{card_line}] at B={fB} S={fS}: "
-        f"kernel {ms3:.4f} ms, bound {bound3:.5f} ms (bytes {nbytes3}) = "
-        f"{100 * bound3 / ms3:.1f}% of the published peak, plain "
-        f"{plain3:.4f} ms; no single PyTorch call computes it")
-    k3 = dict(ms=ms3, plain_ms=plain3, bound_ms=bound3, bound_by="bytes",
-              library_ms=None)
+    k3 = _freeze_timing(torch, CC, K3, R, card_line)
     return k2, k3
 
 
@@ -965,7 +1097,7 @@ def main() -> int:
         err = phase_kernel_cases(torch, C, K, R.paged_decode_attention_ref,
                                  report)
         err2 = phase_contiguous_kernel_cases(torch, CC, K2, K3, R, report)
-    per_call = phase_launch_counts(torch, C, CC, K, K2)
+    per_call = phase_launch_counts(torch, C, CC, K, K2, K3)
     phase_reference(K, launcher, MD, engine_mod, cfg_mod)
     phase_contiguous_reference(torch, kernels, launcher, MD, engine_mod,
                                cfg_mod)

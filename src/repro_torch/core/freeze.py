@@ -48,9 +48,11 @@ def effective_tau(relevance: torch.Tensor, eligible: torch.Tensor,
     """Paper mode: fixed tau.  "quantile" mode: per-sequence threshold at
     the ``cfg.quantile`` quantile of the eligible scores (linear
     interpolation, as ``jnp.nanquantile``); a row with no eligible score
-    gets ``-inf`` so nothing is flagged.
+    that is a number gets ``-inf`` so nothing is flagged.
 
-    The quantile is the reference's arithmetic step for step, in f32: rank
+    The quantile is the reference's arithmetic step for step, in f32: ``n``
+    counts the eligible scores that are not NaN (a NaN relevance, from a
+    poisoned K/V slot, takes no rank, as in ``jnp.nanquantile``), rank
     ``q * (n - 1)``, floor/ceil neighbours, then ``lo * (1 - w) + hi * w``
     with the second product fused into the add, as XLA's CPU backend
     compiles it (one rounding: the exact f32 x f32 product and the sum are
@@ -63,9 +65,10 @@ def effective_tau(relevance: torch.Tensor, eligible: torch.Tensor,
                             device=relevance.device)
     dev = relevance.device
     nan = torch.full((), float("nan"), device=dev)
-    srt = torch.sort(torch.where(eligible, relevance.float(), nan),
-                     dim=-1).values                       # NaNs sort last
-    counts = torch.sum(eligible, dim=-1, keepdim=True, dtype=torch.float32)
+    scores = torch.where(eligible, relevance.float(), nan)
+    srt = torch.sort(scores, dim=-1).values               # NaNs sort last
+    counts = torch.sum(~torch.isnan(scores), dim=-1, keepdim=True,
+                       dtype=torch.float32)
     rank = torch.full_like(counts, cfg.quantile) * (counts - 1)
     low, high = torch.floor(rank), torch.ceil(rank)
     w_hi = rank - low
@@ -80,11 +83,15 @@ def effective_tau(relevance: torch.Tensor, eligible: torch.Tensor,
 
 
 def _lane_clocks(pos, step, S: int, device):
-    """(B,1)- or scalar-shaped pos/step and the (1, S) slot index."""
+    """(B,1)- or scalar-shaped pos/step and the (1, S) slot index;
+    ``step=None`` gives None for it (no host-to-device copy, so a call on
+    device clocks can be captured in a CUDA graph)."""
     pos = torch.as_tensor(pos, dtype=torch.int32, device=device)
-    step = torch.as_tensor(step, dtype=torch.int32, device=device)
     pos_b = pos[:, None] if pos.dim() else pos
-    step_b = step[:, None] if step.dim() else step
+    step_b = None
+    if step is not None:
+        step = torch.as_tensor(step, dtype=torch.int32, device=device)
+        step_b = step[:, None] if step.dim() else step
     idx = torch.arange(S, device=device)[None, :]
     return pos_b, step_b, idx
 
@@ -92,7 +99,7 @@ def _lane_clocks(pos, step, S: int, device):
 def active_mask(state: FreezeState, pos, seq: int) -> torch.Tensor:
     """(B, S) True for slots that participate in attention: written
     (slot <= pos) and not frozen."""
-    pos_b, _, idx = _lane_clocks(pos, 0, seq, state.frozen.device)
+    pos_b, _, idx = _lane_clocks(pos, None, seq, state.frozen.device)
     return (idx <= pos_b) & ~state.frozen
 
 
@@ -100,7 +107,8 @@ def eligible_mask(state: FreezeState, pos, cfg: FreezeConfig
                   ) -> torch.Tensor:
     """Alg. 1 line 3: written, outside the K most-recent tokens, and not
     already frozen — the slots the threshold is taken over."""
-    pos_b, _, idx = _lane_clocks(pos, 0, state.c.shape[-1], state.c.device)
+    pos_b, _, idx = _lane_clocks(pos, None, state.c.shape[-1],
+                                 state.c.device)
     return (idx <= pos_b) & ~(idx > pos_b - cfg.window) & ~state.frozen
 
 

@@ -12,7 +12,8 @@ layouts aimed at the CUDA kernel's chunks (``freeze_decode_attn.CHUNK``):
 a ragged last chunk alone in its block, and a chunk whose one active slot
 is its last.  Freeze-update cases are that file's
 sweep, crossed with scalar and per-lane clocks and fixed and quantile
-thresholds, plus the main path's shape.
+thresholds, plus the main path's shape, plus cases aimed at the threshold
+the fused kernel finds itself (``threshold_cases``).
 """
 from __future__ import annotations
 
@@ -212,6 +213,99 @@ def freeze_cases() -> List[FreezeCase]:
         _freeze_inputs(rng, B, S),
         np.array([2047, 1500, 1041, 699], np.int32),
         np.array([255, 100, 17, 3], np.int32)))
+    return out + threshold_cases()
+
+
+def _quantile_cfg(**kw):
+    return dict(dict(window=8, k_soft=1.0, history=64, tau_mode="quantile",
+                     quantile=0.45), **kw)
+
+
+def threshold_cases() -> List[FreezeCase]:
+    """Cases aimed at the threshold the fused kernel selects itself (its
+    radix select, its f32 rank arithmetic, its shared-memory key budget of
+    4096 slots) — all in quantile mode."""
+    out = []
+
+    def add(name, B, S, pos, step, seed, cfg=None, edit=None):
+        rng = np.random.RandomState(seed)
+        x = _freeze_inputs(rng, B, S)
+        if edit is not None:
+            edit(rng, x)
+        out.append(FreezeCase(name, cfg or _quantile_cfg(), x,
+                              np.asarray(pos, np.int32),
+                              np.asarray(step, np.int32)))
+
+    def ties(rng, x):
+        # five values: the ranks low and high fall inside runs of equal keys
+        x["relevance"] = (rng.randint(0, 5, x["relevance"].shape) / 4) \
+            .astype(np.float32)
+
+    add("ties-4x512-per_lane", 4, 512, [511, 400, 77, 300], [5, 63, 0, 17],
+        21, edit=ties)
+    add("ties-2x512-scalar", 2, 512, 500, 63, 22, edit=ties,
+        cfg=_quantile_cfg(quantile=0.6))
+
+    def nan(rng, x):
+        r, fr = x["relevance"], x["frozen"]
+        elig = lambda b: np.nonzero(~fr[b, :290])[0]   # pos 297, window 8
+        r[0, elig(0)[5]] = np.nan                 # one eligible NaN
+        r[1, elig(1)] = np.nan                    # every eligible score NaN
+        r[2, fr[2]] = np.nan                      # NaN only where frozen,
+        r[2, 295:] = np.nan                       # in the window, unwritten
+        r[3, elig(3)[:3]] = [np.inf, -np.inf, np.inf]
+        r[3, elig(3)[3]] = -0.0
+    add("nan-4x300", 4, 300, 297, 11, 23, edit=nan)
+
+    def few(rng, x):
+        # lane 0: every slot outside the window frozen (0 eligible); lane
+        # 1: exactly one eligible slot; lanes 2 and 3: exactly two, lane
+        # 3's -inf and +inf (their blend is NaN, so tau is -inf)
+        fr = x["frozen"]
+        fr[:, :120] = True
+        fr[1, 40] = False
+        fr[2:, [3, 99]] = False
+        x["relevance"][3, [3, 99]] = [-np.inf, np.inf]
+    add("eligible-0-1-2-4x128", 4, 128, 127, 7, 24, edit=few)
+    # pos < window: no slot is eligible in any lane
+    add("pos-lt-window-2x64", 2, 64, [3, 15], [1, 2], 25,
+        cfg=_quantile_cfg(window=16))
+
+    def one_slot(rng, x):
+        x["frozen"][:] = [[False], [True]]
+    add("s1-2x1", 2, 1, [0, 0], [3, 4], 26, cfg=_quantile_cfg(window=0),
+        edit=one_slot)
+    add("ragged-4x2049", 4, 2049, [2048, 2000, 1033, 5], [9, 63, 4, 1], 27)
+    for S in (8192, 32768):
+        add(f"long-4x{S}", 4, S, [S - 1, S - 300, S // 2 + 17, 700],
+            [255, 100, 17, 3], 28, cfg=_quantile_cfg(window=16, history=256))
+    # the Table-1 protocol's cache and settings: one lane, scalar clocks
+    add("table1-1x560", 1, 560, 530, 515, 29,
+        cfg=_quantile_cfg(window=16, history=256))
+
+    # tests/test_freeze.py's quantile rows: lane b has exactly b eligible
+    # slots (b = 0..63), scores up to 1000, so the f32 rank q * (b - 1)
+    # lands just off an integer on some lanes
+    def ranks(rng, x):
+        x["frozen"][:] = False
+        x["relevance"] = (rng.rand(64, 68) * 1000).astype(np.float32)
+    for q in (0.35, 0.45, 0.6):
+        add(f"rank-q{q}-64x68", 64, 68, np.arange(64) + 3,
+            np.arange(64) % 7, 30, cfg=_quantile_cfg(window=4, quantile=q),
+            edit=ranks)
+
+    # the same rows drawn from three random values: the two order
+    # statistics tie, so tau must come out as that value to the ulp; a
+    # blend rounded twice in f32 misses it on some lanes and flips the
+    # slots equal to it (seed 31 does so at each of the three quantiles)
+    def tied(rng, x):
+        x["frozen"][:] = False
+        vals = rng.rand(3).astype(np.float32)
+        x["relevance"] = vals[rng.randint(0, 3, (64, 68))]
+    for q in (0.35, 0.45, 0.6):
+        add(f"tied-rank-q{q}-64x68", 64, 68, np.arange(64) + 3,
+            np.arange(64) % 7, 31, cfg=_quantile_cfg(window=4, quantile=q),
+            edit=tied)
     return out
 
 

@@ -2,14 +2,18 @@
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 kernel's plain PyTorch version.  There is no fallback from one to the
-other.  Launch counts live on the kernel wrappers
+other.  The freeze update's threshold is taken inside its kernel on the
+card, so no PyTorch op runs around it there.  Launch counts live on the
+kernel wrappers
 (``paged_decode_attention_cuda.launches``,
 ``freeze_decode_attention_cuda.launches``,
 ``relevance_freeze_cuda.launches``)."""
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import FreezeConfig
-from repro_torch.core.freeze import FreezeState, lane_tau
+from repro_torch.core.freeze import FreezeState
 from repro_torch.kernels import ref
 from repro_torch.kernels.freeze_decode_attn import \
     freeze_decode_attention_cuda
@@ -46,12 +50,25 @@ def paged_decode_attention(q, k_pages, v_pages, slot_mask, page_table=None,
 
 
 def freeze_state_update(state: FreezeState, relevance, pos, step,
-                        cfg: FreezeConfig):
-    """(new FreezeState, active mask (B,S)) — the fused Algorithm 1 pass.
-    The per-lane threshold is taken here (``core.freeze.lane_tau``: the
-    quantile of the eligible relevance, or ``cfg.tau``), so both tau modes
-    and scalar or per-lane clocks go through the kernel."""
-    tau = lane_tau(state, relevance, pos, cfg)
+                        cfg: FreezeConfig, out=None, active: bool = True,
+                        active_count=None):
+    """(new FreezeState, active mask (B,S) or None) — Algorithm 1 lines
+    3-15 with the per-lane threshold (the quantile of the eligible
+    relevance, or ``cfg.tau``) taken inside: on the card by the fused
+    kernel in one launch, on the CPU by the plain version.  ``pos``/``step``
+    are scalars or per-lane clocks.  ``out`` receives the new state
+    (``out=state`` updates in place; None makes a new one); ``active=False``
+    returns no mask; ``active_count`` ((B,) int32) gets each lane's active
+    slot count added."""
     if relevance.is_cuda:
-        return relevance_freeze_cuda(state, relevance, pos, step, tau, cfg)
-    return ref.relevance_freeze_ref(state, relevance, pos, step, tau, cfg)
+        return relevance_freeze_cuda(state, relevance, pos, step, cfg,
+                                     out=out, active=active,
+                                     active_count=active_count)
+    new, act = ref.relevance_freeze_ref(state, relevance, pos, step, cfg)
+    if out is not None:
+        for dst, src in zip(out, new):
+            dst.copy_(src)
+        new = out
+    if active_count is not None:
+        active_count += torch.sum(act, dim=-1, dtype=torch.int32)
+    return new, act if active else None

@@ -1,10 +1,11 @@
-"""On-card measurements of the two attention kernels' insides, at the main
-path's shapes: per-block phase timestamps (``%globaltimer`` read by thread
-0 at fixed points of instrumented copies of ``csrc/*.cu``), and the device
-time of variants: the split sizes (``paged_decode_attn.PAGE_SPLITS``,
+"""On-card measurements of the three kernels' insides, at the main path's
+shapes: per-block phase timestamps (``%globaltimer`` read by thread 0 at
+fixed points of instrumented copies of ``csrc/*.cu``), and the device time
+of variants: the split sizes (``paged_decode_attn.PAGE_SPLITS``,
 ``freeze_decode_attn.CHUNK``) and source edits (programmatic dependent
-launch off, 256 threads a block), each checked against the plain version
-first.
+launch off, 256 threads a block; for the freeze update, a histogram a
+select, 512 threads, one update slot in flight a thread), each checked
+against the plain version first.
 
     PYTHONPATH=src python -m repro_torch.kernels.phase_probe
 
@@ -24,6 +25,7 @@ from repro_torch.kernels import contiguous_cases as CC
 from repro_torch.kernels import freeze_decode_attn as K2
 from repro_torch.kernels import paged_decode_attn as K
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import relevance_freeze as K3
 from repro_torch.kernels.cuda_lib import BUILD_DIR, CudaLibrary
 
 STAMP_PRELUDE = r'''namespace {
@@ -38,8 +40,15 @@ __device__ unsigned long long* g_stamps;
 '''
 STAMP_SETTER = ('\nextern "C" int stamps_set(void* p) {\n'
                 '  return (int)cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));\n}\n')
-PHASES = ("entry -> tables read", "-> mask read", "-> K/V landed",
-          "-> row sums", "-> softmax", "-> P.V", "-> partials written")
+PHASES = {
+    "paged_decode_attn": ("entry -> tables read", "-> mask read",
+                          "-> K/V landed", "-> row sums", "-> softmax",
+                          "-> P.V", "-> partials written"),
+    "relevance_freeze": ("entry -> keys loaded, counted", "-> select pass 1",
+                         "-> select pass 2", "-> select pass 3",
+                         "-> select pass 4", "-> tau", "-> update written"),
+}
+PHASES["freeze_decode_attn"] = PHASES["paged_decode_attn"]
 # (anchor, stamp): the stamp goes after the anchor, or right after the
 # anchor's first barrier when it starts with "@"
 STAMPS = {
@@ -70,6 +79,15 @@ STAMPS = {
          "next\n", "    STAMP(6)\n"),
         ("                     (size_t)n_split * hd, hd);\n", "  STAMP(7)\n"),
     ],
+    "relevance_freeze": [
+        ("  const int p = a.pos[b];\n", "  STAMP(0)\n"),
+        ("    n = block_total(n, warp_n);\n", "    STAMP(1)\n"),
+        ("__ffs(__ballot_sync(0xffffffffu, mine)) - 1);\n        }\n"
+         "        __syncthreads();\n", "        STAMP(2 + pass)\n"),
+        ("      tau = isnan(t) ? -INFINITY : t;\n", "      STAMP(6)\n"),
+        ("    if (tid == 0) a.act_count[b] += n_active;\n  }\n",
+         "  STAMP(7)\n"),
+    ],
 }
 VARIANTS = {
     "committed": [],
@@ -81,6 +99,17 @@ VARIANTS = {
         ("constexpr int kThreads = 128;", "constexpr int kThreads = 256;"),
         ("constexpr int kLoads = 8; ", "constexpr int kLoads = 4; "),
         ("__launch_bounds__(kThreads, 3)", "__launch_bounds__(kThreads, 2)")],
+}
+
+
+FREEZE_VARIANTS = {
+    "committed": [],
+    "a histogram a select in every pass": [
+        ("const bool shared = pre0 == pre1;", "const bool shared = false;")],
+    "512 threads": [("constexpr int kThreads = 1024;",
+                     "constexpr int kThreads = 512;")],
+    "phase C one slot in flight a thread": [
+        ("constexpr int kBatch = 4; ", "constexpr int kBatch = 1; ")],
 }
 
 
@@ -158,6 +187,39 @@ def main_path_calls():
                     q, k, v, m))}
 
 
+def freeze_calls():
+    """The decode step's freeze update at the main path's shape (in place,
+    threshold in the kernel, no mask; 12 rotated copies of the state) for
+    timing, a check that the kernel is exact against its plain version on
+    every freeze case (returns the count), and ``call`` at S=32768."""
+    from repro_torch.configs.base import FreezeConfig
+    from repro_torch.core.freeze import FreezeState
+    dev = torch.device("cuda")
+    cases = {c.name: c for c in CC.freeze_cases()}
+
+    def rotated(name):
+        case = cases[name]
+        cfg = FreezeConfig(**case.cfg)
+        state, rel, pos, step = CC.freeze_args(case, dev)
+        work = [FreezeState(*(t.clone() for t in state)) for _ in range(12)]
+        count = torch.zeros((rel.shape[0],), dtype=torch.int32, device=dev)
+        return lambda i: K3.relevance_freeze_cuda(
+            work[i % 12], rel, pos, step, cfg, out=work[i % 12],
+            active=False, active_count=count)
+
+    def check():
+        for case in cases.values():
+            cfg = FreezeConfig(**case.cfg)
+            args = CC.freeze_args(case, dev)
+            got = K3.relevance_freeze_cuda(*args, cfg)
+            want = R.relevance_freeze_ref(*args, cfg)
+            for a, b in zip([*got[0], got[1]], [*want[0], want[1]]):
+                assert torch.equal(a, b), case.name
+        return len(cases)
+
+    return rotated("main-path-4x2048"), check, rotated("long-4x32768")
+
+
 def phases(mod, call) -> list:
     """Per-block phase durations (us) and the span of one call."""
     lib = edited_library(mod, "stamps", [], STAMPS[mod.LIB.name])
@@ -177,10 +239,10 @@ def phases(mod, call) -> list:
     t = buf.cpu().numpy().reshape(-1, 8)
     t = t[t[:, 0] > 0].astype(np.int64)
     full = t[(t[:, 3] > 0) & (t[:, 7] > 0)]
-    lines = [f"{mod.LIB.name}: {len(t)} blocks, {len(full)} with K/V; first "
-             f"start to last partials {(t[:, 7].max() - t[:, 0].min()) / 1e3:.2f}"
-             " us"]
-    for i, name in enumerate(PHASES):
+    lines = [f"{mod.LIB.name}: {len(t)} blocks, {len(full)} with every "
+             f"phase; first start to last end "
+             f"{(t[:, 7].max() - t[:, 0].min()) / 1e3:.2f} us"]
+    for i, name in enumerate(PHASES[mod.LIB.name]):
         d = (full[:, i + 1] - full[:, i]) / 1e3
         lines.append(f"  {name:24s} median {np.median(d):5.2f} us, p90 "
                      f"{np.percentile(d, 90):5.2f} us")
@@ -197,6 +259,7 @@ def main() -> None:
     print(card)
     K.load()
     K2.load()
+    K3.load()
     calls = main_path_calls()
     for mod, (call, _) in calls.items():
         for line in phases(mod, call):
@@ -213,6 +276,21 @@ def main() -> None:
                       f"{graph_ms(call):.4f} ms")
         finally:
             setattr(mod, attr, keep)
+    fcall, fcheck, flong = freeze_calls()
+    for line in phases(K3, fcall):
+        print(line)
+    for rep in range(2):
+        for tag, edits in FREEZE_VARIANTS.items():
+            lib = edited_library(K3, tag, edits)
+            keep, K3.LIB._fn = K3.LIB._fn, lib.load()
+            try:
+                n = fcheck()
+                ms, ms_long = graph_ms(fcall), graph_ms(flong)
+            finally:
+                K3.LIB._fn = keep
+            print(f"[{card}] relevance_freeze, {tag}: {ms:.4f} ms at "
+                  f"S=2048, {ms_long:.4f} ms at S=32768 (exact on {n} "
+                  f"cases)")
     for rep in range(2):
         for tag, edits in VARIANTS.items():
             for mod, (call, plain) in calls.items():

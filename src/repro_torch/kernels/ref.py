@@ -10,7 +10,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import FreezeConfig
-from repro_torch.core.freeze import FreezeState, freeze_update_with_tau
+from repro_torch.core.freeze import (FreezeState, freeze_update_with_tau,
+                                     lane_tau)
 from repro_torch.models.layers import decode_attention
 
 
@@ -79,9 +80,14 @@ def freeze_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 def relevance_freeze_ref(state: FreezeState, relevance: torch.Tensor, pos,
-                         step, tau: torch.Tensor, cfg: FreezeConfig
+                         step, cfg: FreezeConfig,
+                         tau: Optional[torch.Tensor] = None
                          ) -> Tuple[FreezeState, torch.Tensor]:
-    """(new FreezeState, active (B, S) bool): ``freeze_update`` with the
-    per-lane threshold ``tau`` (B,) given and scalar or (B,) clocks."""
+    """(new FreezeState, active (B, S) bool): ``freeze_update`` with scalar
+    or (B,) clocks.  ``tau=None`` takes the threshold from ``cfg``
+    (``lane_tau``: the quantile of the eligible relevance, or ``cfg.tau``);
+    a given (B,) f32 ``tau`` is used as it is.  Out of place."""
+    if tau is None:
+        tau = lane_tau(state, relevance, pos, cfg)
     new, info = freeze_update_with_tau(state, relevance, pos, step, tau, cfg)
     return new, info["active"]

@@ -220,8 +220,11 @@ def lm_decode_step(
 
     Each layer writes its new K/V at ``pos`` and runs the freeze-masked
     attention kernel (``ops.masked_decode_attention``), whose relevance
-    feeds the fused freeze update (``ops.freeze_state_update``); the cache
-    and the freeze counters are updated IN PLACE.  Recovery runs on the
+    feeds the fused freeze update (``ops.freeze_state_update``: on the
+    card one kernel launch a layer, threshold included, writing the layer's
+    freeze counters in place and adding each lane's active count to one
+    (B,) accumulator, summed once after the loop); the cache and the
+    freeze counters are updated IN PLACE.  Recovery runs on the
     logits.  Returns (logits (B, V), state, info)."""
     fcfg = freeze_cfg or cfg.freeze
     B = token.shape[0]
@@ -236,7 +239,7 @@ def lm_decode_step(
     slot = pos.long() if per_lane else pos.long().expand(B)
     exists = torch.arange(Smax, device=dev)[None, :] <= \
         (pos[:, None] if per_lane else pos)
-    act_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    act_count = torch.zeros((B,), dtype=torch.int32, device=dev)
     for l in range(cfg.num_layers):
         lp = layer_params(params, l)
         xn = L.rms_norm(x, lp["norm1"] + 1.0, cfg.norm_eps)
@@ -250,17 +253,16 @@ def lm_decode_step(
         o, rel = OPS.masked_decode_attention(q, ck, cv, exists & ~fz.frozen)
         x = x + L.attention_out(lp["attn"], o)
         if enable_freeze:
-            new_fz, active = OPS.freeze_state_update(fz, rel, pos, step,
-                                                     fcfg)
-            for dst, src in zip(fz, new_fz):
-                dst.copy_(src)
-            act_sum = act_sum + torch.sum(active)
+            OPS.freeze_state_update(fz, rel, pos, step, fcfg, out=fz,
+                                    active=False, active_count=act_count)
         xn2 = L.rms_norm(x, lp["norm2"] + 1.0, cfg.norm_eps)
         x = x + L.mlp_forward(lp["ffn"], xn2)
     x = L.rms_norm(x, params["final_norm"] + 1.0, cfg.norm_eps)
     logits = unembed(params, cfg, x)
     act_cnt = B * cfg.num_layers if enable_freeze else 0
-    info: Dict[str, torch.Tensor] = {"mean_active": act_sum / max(act_cnt, 1)}
+    info: Dict[str, torch.Tensor] = {
+        "mean_active": torch.sum(act_count, dtype=torch.float32)
+        / max(act_cnt, 1)}
     new_state = state
     if enable_freeze and attn_layer_count(cfg) and fcfg.recovery_enabled:
         rec, fz_all, rinfo = recovery_update(state.recovery, state.freeze,

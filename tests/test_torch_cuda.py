@@ -1,17 +1,17 @@
 """Card-only tests of the port: each hand-written CUDA kernel (paged decode
-attention, freeze-masked decode attention, the fused freeze update)
-against its plain PyTorch version on every contract case, each attention
-kernel's determinism (two calls on the same inputs, bit-identical), and
-the tiny paged and contiguous engines on the card going through the
-kernels.  They
-need a CUDA device and ``nvcc``; elsewhere they skip.  Run them on the card
+attention, freeze-masked decode attention, the fused freeze update with
+its threshold, out of place and in place) against its plain PyTorch
+version on every contract case, each kernel's determinism (two calls on
+the same inputs, bit-identical), the freeze update's one launch a call,
+and the tiny paged and contiguous engines on the card going through the
+kernels.  They need a CUDA device and ``nvcc``; elsewhere they skip.  Run them on the card
 with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs.base import FreezeConfig
-from repro_torch.core.freeze import lane_tau
+from repro_torch.core.freeze import FreezeState, lane_tau
 from repro_torch.kernels import cases as C
 from repro_torch.kernels import contiguous_cases as CC
 from repro_torch.kernels import freeze_decode_attn as K2
@@ -210,13 +210,86 @@ def test_freeze_kernel_matches_plain_version_exactly(card, name):
     cfg = FreezeConfig(**case.cfg)
     state, rel, pos, step = CC.freeze_args(case, card)
     tau = lane_tau(state, rel, pos, cfg)
-    new_k, act_k = K3.relevance_freeze_cuda(state, rel, pos, step, tau, cfg)
-    new_p, act_p = relevance_freeze_ref(state, rel, pos, step, tau, cfg)
+    new_k, act_k = K3.relevance_freeze_cuda(state, rel, pos, step, cfg,
+                                            tau=tau)
+    new_p, act_p = relevance_freeze_ref(state, rel, pos, step, cfg, tau=tau)
     torch.cuda.synchronize()
     for f in ("c", "d", "frozen", "frozen_at"):
         assert torch.equal(getattr(new_k, f), getattr(new_p, f)), f
         assert getattr(new_k, f).dtype == getattr(new_p, f).dtype, f
     assert torch.equal(act_k, act_p)
+
+
+def _fused(case, device, in_place):
+    """The fused kernel (threshold taken inside) on one case, out of place
+    or in place: (new state, mask, active count, tau used)."""
+    cfg = FreezeConfig(**case.cfg)
+    state, rel, pos, step = CC.freeze_args(case, device)
+    B = rel.shape[0]
+    count = torch.full((B,), 5, dtype=torch.int32, device=device)
+    tau = torch.empty((B,), dtype=torch.float32, device=device)
+    out = None
+    if in_place:
+        state = out = FreezeState(*(t.clone() for t in state))
+    new, act = K3.relevance_freeze_cuda(state, rel, pos, step, cfg, out=out,
+                                        active_count=count, tau_out=tau)
+    torch.cuda.synchronize()
+    assert (new is state) == in_place
+    return new, act, count - 5, tau
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("name", sorted(FREEZE_CASES))
+def test_fused_freeze_kernel_matches_plain_version(card, name, in_place):
+    """Threshold and update in one launch: state and mask bit-exact against
+    the plain version with ``tau=None``, the accumulator equal to the
+    mask's lane sums, the threshold equal to ``lane_tau`` as a float (a
+    zero may differ in its sign)."""
+    case = FREEZE_CASES[name]
+    cfg = FreezeConfig(**case.cfg)
+    new_k, act_k, count, tau_k = _fused(case, card, in_place)
+    state, rel, pos, step = CC.freeze_args(case, card)
+    new_p, act_p = relevance_freeze_ref(state, rel, pos, step, cfg)
+    for f in FreezeState._fields:
+        assert torch.equal(getattr(new_k, f), getattr(new_p, f)), f
+    assert torch.equal(act_k, act_p)
+    assert torch.equal(count, act_p.sum(-1, dtype=torch.int32))
+    assert torch.equal(tau_k, lane_tau(state, rel, pos, cfg))
+
+
+@pytest.mark.parametrize("name", sorted(FREEZE_CASES))
+def test_fused_freeze_kernel_is_deterministic(card, name):
+    first = _fused(FREEZE_CASES[name], card, False)
+    second = _fused(FREEZE_CASES[name], card, False)
+    for f in FreezeState._fields:
+        assert torch.equal(getattr(first[0], f), getattr(second[0], f)), f
+    for a, b in zip(first[1:], second[1:]):
+        assert torch.equal(a, b)
+
+
+def test_fused_freeze_kernel_is_one_launch(card):
+    """One kernel on the device a call, and no other device work: the
+    threshold needs no sort."""
+    case = [c for c in FREEZE_CASES.values()
+            if c.name.startswith("main-path")][0]
+    cfg = FreezeConfig(**case.cfg)
+    state, rel, pos, step = CC.freeze_args(case, card)
+    out = FreezeState(*(torch.empty_like(t) for t in state))
+    count = torch.zeros((rel.shape[0],), dtype=torch.int32, device=card)
+    run = lambda: K3.relevance_freeze_cuda(state, rel, pos, step, cfg,
+                                           out=out, active=False,
+                                           active_count=count)
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            run()
+        torch.cuda.synchronize()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages() if e.device_type == cuda_t]
+    assert sum(e.count for e in events) == 4, [e.key for e in events]
+    assert all("relevance_freeze_kernel" in e.key for e in events)
 
 
 def test_tiny_continuous_engine_runs_through_the_kernels(card):

@@ -203,7 +203,7 @@ def test_relevance_freeze_ref_matches_pallas_kernel(B, S, blk, window,
         rcfg, block_s=blk, interpret=True)
     tau = torch.full((B,), 0.5)
     new_t, act_t = relevance_freeze_ref(_torch_state(h), torch.tensor(rel),
-                                        pos, step, tau, tcfg)
+                                        pos, step, tcfg, tau=tau)
     _assert_state_equal(new_t, new_k)
     np.testing.assert_array_equal(act_t.numpy(), np.asarray(act_k))
 
@@ -254,3 +254,155 @@ def test_freeze_cases_match_reference(name):
             interpret=True)
         _assert_state_equal(new_t, new_k)
         np.testing.assert_array_equal(act_t.numpy(), np.asarray(act_k))
+
+
+@pytest.mark.parametrize("name", [c.name for c in CC.freeze_cases()])
+def test_freeze_state_update_in_place_with_active_count(name):
+    """The decode step's call: ``out=state`` writes the same state as the
+    out-of-place update, returns no mask, and adds each lane's active
+    count to the accumulator."""
+    case = {c.name: c for c in CC.freeze_cases()}[name]
+    tcfg = TFreezeConfig(**case.cfg)
+    state, rel, pos, step = CC.freeze_args(case, "cpu")
+    new, act = ops.freeze_state_update(state, rel, pos, step, tcfg)
+    work = TF.FreezeState(*(t.clone() for t in state))
+    count = torch.full((rel.shape[0],), 7, dtype=torch.int32)
+    got, mask = ops.freeze_state_update(work, rel, pos, step, tcfg, out=work,
+                                        active=False, active_count=count)
+    assert got is work and mask is None
+    for f in FIELDS:
+        assert torch.equal(getattr(work, f), getattr(new, f)), f
+    assert torch.equal(count, 7 + act.sum(-1, dtype=torch.int32))
+
+
+def _nan_scores(seed, B, S):
+    """Seeded (B, S) relevance with ~70% of slots eligible and one NaN on
+    an eligible slot of row 0; row 1, if any, has no NaN."""
+    rng = np.random.RandomState(seed)
+    rel = rng.rand(B, S).astype(np.float32)
+    elig = rng.rand(B, S) < 0.7
+    rel[0, np.nonzero(elig[0])[0][3]] = np.nan
+    return rel, elig
+
+
+@pytest.mark.parametrize("q", [0.35, 0.45, 0.6])
+def test_effective_tau_ranks_only_eligible_numbers(q):
+    """``jnp.nanquantile`` ranks the eligible scores that are not NaN; an
+    eligible NaN must not move the rank (row 0), a row of NaNs gets -inf
+    (row 2), and a row without NaN is unchanged (row 1)."""
+    rcfg, tcfg = _cfgs(tau_mode="quantile", quantile=q)
+    rel, elig = _nan_scores(0, 3, 40)
+    rel[2, elig[2]] = np.nan
+    tau = TF.effective_tau(torch.tensor(rel), torch.tensor(elig), tcfg)
+    ref = np.asarray(RF.effective_tau(jnp.asarray(rel), jnp.asarray(elig),
+                                      rcfg))
+    np.testing.assert_array_equal(tau.numpy(), ref)
+    assert tau[2] == float("-inf")
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+def test_freeze_update_with_eligible_nan_matches_reference(per_lane):
+    """Steps of ``freeze_update`` whose relevance holds NaNs on eligible
+    slots (a poisoned K/V slot's score): same state, masks and counts as
+    ``repro``, through the plain version and the dispatcher."""
+    rcfg, tcfg = _cfgs(window=4, tau_mode="quantile", quantile=0.45,
+                       k_soft=1.0, history=8)
+    rng = np.random.RandomState(6)
+    B, S = 3, 48
+    h = _state(rng, (B, S))
+    rs, ts, ds = _jax_state(h), _torch_state(h), _torch_state(h)
+    for step in range(8):
+        rel, _ = _nan_scores(100 + step, B, S)
+        rel[1, rng.randint(0, 40, 3)] = np.nan
+        if per_lane:
+            pos = np.array([47, 30, 20 + step], np.int32)
+            stp = np.array([step, 2 * step, step + 3], np.int32)
+        else:
+            pos, stp = np.int32(40 + step), np.int32(step)
+        rs, rinfo = RF.freeze_update(rs, jnp.asarray(rel), jnp.asarray(pos),
+                                     jnp.asarray(stp), rcfg)
+        ts, tinfo = TF.freeze_update(ts, torch.tensor(rel),
+                                     torch.tensor(pos), torch.tensor(stp),
+                                     tcfg)
+        ds, act = ops.freeze_state_update(ds, torch.tensor(rel),
+                                          torch.tensor(pos),
+                                          torch.tensor(stp), tcfg)
+        _assert_state_equal(ts, rs, f"step {step}")
+        _assert_state_equal(ds, rs, f"dispatcher, step {step}")
+        for k in ("just_frozen", "restored", "active", "n_active",
+                  "n_frozen"):
+            np.testing.assert_array_equal(tinfo[k].numpy(),
+                                          np.asarray(rinfo[k]), err_msg=k)
+        np.testing.assert_array_equal(act.numpy(),
+                                      np.asarray(rinfo["active"]))
+
+
+@pytest.mark.parametrize("full_pool", [False, True])
+def test_page_freeze_update_with_eligible_nan_matches_reference(full_pool):
+    """The paged path shares ``effective_tau``; with a full pool its forced
+    freeze takes the argmin of the candidates, which an eligible NaN page
+    relevance turns to NaN in both frameworks (so nothing is forced)."""
+    from repro.core import paging as RP
+    from repro_torch.core import paging as TP
+    kw = dict(page_size=8, window=8, tau_mode="quantile", quantile=0.4,
+              k_soft=1.0, history=7)
+    if full_pool:
+        kw.update(tau_mode="fixed", tau=0.0)      # nothing flags on its own
+    rcfg, tcfg = _cfgs(**kw)
+    rng = np.random.RandomState(8)
+    B, P = 3, 10
+    pt = np.tile(np.arange(P, dtype=np.int32) * 2, (B, 1))
+    if not full_pool:
+        pt[rng.rand(B, P) < 0.2] = -1
+    st = dict(c=rng.randint(0, 6, (B, P)).astype(np.int32),
+              d=np.zeros((B, P), np.int32),
+              frozen=np.zeros((B, P), bool),
+              frozen_at=rng.randint(-1, 40, (B, P)).astype(np.int32))
+    rel = rng.rand(B, P).astype(np.float32)
+    rel[0, 2] = np.nan                           # eligible: page 2 < 16 - 1
+    rel[1, [0, 1, 3]] = np.nan
+    cur, step = np.int32(18), np.int32(6)
+    new_r, info_r = RP.page_freeze_update(
+        RP.PageFreezeState(**{k: jnp.asarray(v) for k, v in st.items()}),
+        jnp.asarray(rel), jnp.asarray(pt), jnp.asarray(cur),
+        jnp.asarray(step), rcfg)
+    new_t, info_t = TP.page_freeze_update(
+        TP.PageFreezeState(**{k: torch.tensor(v) for k, v in st.items()}),
+        torch.tensor(rel), torch.tensor(pt), torch.tensor(cur),
+        torch.tensor(step), tcfg)
+    for f in TP.PageFreezeState._fields:
+        np.testing.assert_array_equal(getattr(new_t, f).numpy(),
+                                      np.asarray(getattr(new_r, f)), f)
+    for k in ("just_frozen", "restored", "n_frozen"):
+        np.testing.assert_array_equal(info_t[k].numpy(),
+                                      np.asarray(info_r[k]), k)
+    if full_pool:
+        # lanes with a NaN candidate force nothing; lane 2 forces one page
+        assert not info_t["just_frozen"][:2].any()
+        assert int(info_t["just_frozen"][2].sum()) == 1
+
+
+@pytest.mark.parametrize("layout", ["other_input", "relevance",
+                                    "other_output"])
+def test_freeze_kernel_wrapper_rejects_overlapping_outputs(layout):
+    """The kernel may write over its own inputs (in place) and nowhere
+    else: an output on another input or on another output raises."""
+    from repro_torch.kernels import relevance_freeze as K3
+    state, rel = TF.init_freeze_state(2, 8), torch.zeros(2, 8)
+    K3._check_out(state, state, rel)
+    fresh = TF.init_freeze_state(2, 8)
+    bad = {"other_input": fresh._replace(c=state.d),
+           "relevance": fresh._replace(frozen_at=rel.view(torch.int32)),
+           "other_output": fresh._replace(d=fresh.c)}[layout]
+    with pytest.raises(ValueError, match="overlaps"):
+        K3._check_out(bad, state, rel)
+
+
+def test_freeze_kernel_wrapper_takes_no_cpu_tensor():
+    """No fallback: the kernel's wrapper raises on CPU tensors (the
+    dispatcher sends those to the plain version)."""
+    from repro_torch.kernels import relevance_freeze as K3
+    _, tcfg = _cfgs(tau_mode="quantile")
+    with pytest.raises(ValueError, match="CUDA"):
+        K3.relevance_freeze_cuda(TF.init_freeze_state(2, 8),
+                                 torch.zeros(2, 8), 7, 3, tcfg)
