@@ -21,24 +21,35 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      taken in the kernel out of place (twice, bit-identical) and in place,
      its active count and threshold checked too; each attention kernel
      called twice on every case must give bit-identical outputs and
-     relevance (its combine is deterministic), and makes at most two kernel
-     launches a call, the freeze update exactly one and no other device
-     work (counted by the profiler at the main-path shape);
+     relevance (its combine is deterministic); the paged kernel on the
+     main-path pages at P and at the async engine's P + S layout (live K/V
+     in the unmapped staging slots) must be bit-identical; each attention
+     kernel makes at most two kernel launches a call, the freeze update
+     exactly one and no other device work (counted by the profiler at the
+     main-path shape; a session that drops events is retried);
   4. reference check — the tiny model at f32, greedy, served on the card
-     through the kernels and on the CPU through the plain versions: the
-     paged engine on a swapping trace and a thaw/rewind trace, the
-     contiguous engine on a freeze/offload trace and a rewind trace, and
-     ``Engine.generate``; tokens and counters must agree;
+     through the kernels with the async pipeline and with the synchronous
+     one, and on the CPU through the plain versions synchronously: the
+     paged engine on a swapping trace and a thaw/rewind trace (where the
+     card's async arm must install at least half its thaws from staging
+     slots), the contiguous engine on a freeze/offload trace and a rewind
+     trace, and ``Engine.generate``; tokens and counters must agree;
   5. main paths — llama3-8b at full published width and depth (bf16 random
      weights made on the card from a seed, once) serves 8 requests of 128
      new tokens through the paged engine and then through the contiguous
-     ``ContinuousEngine`` (freeze, host offload, recovery), each with no
+     ``ContinuousEngine`` (freeze, host offload, recovery), each in the
+     default config (async pipeline; 3 staging slots a lane on the paged
+     one) and then with ``--no-async`` on the same requests, with no
      profiler attached and each kernel's launch counter read around the
-     serve; a short profiled serve on each engine gives the device busy
-     share, aten ops, kernels and ``aten::sort`` calls a step.
-     ``Engine.generate`` then runs the paper's Table-1 protocol (14-token
-     prompt, 500 new tokens) with freeze off and on;
-  6. kernel timing at the main-path shapes: device time per call from CUDA
+     serve; the arms' tokens must be identical and the async arm must
+     block the host on fewer steps.  A short profiled serve on each async
+     engine gives the device busy share, aten ops, kernels and
+     ``aten::sort`` calls a step.  ``Engine.generate`` then runs the
+     paper's Table-1 protocol (14-token prompt, 500 new tokens) with
+     freeze off and on, and ``launch/bench_async.py`` its smoke trace on
+     the card (sync vs async paged engine, tiny model);
+  6. kernel timing at the main-path shapes (the paged kernel at the P + S
+     layout of the async main path and at P): device time per call from CUDA
      graph replay over rotated input copies (read from HBM, as in the
      step), the bound, the plain version, and a library yardstick the port
      never calls (SDPA, over the same rotation) where one PyTorch call
@@ -158,12 +169,45 @@ def phase_kernel_cases(torch, C, K, ref, report):
     np.testing.assert_array_equal(out[0], 0.0)
     np.testing.assert_array_equal(rel[0], 0.0)
     report.write("dead_lane: zeros\n")
+    for dtype in C.DTYPES:
+        _staged_layout(torch, C, K, run, dtype, report)
     main = [n for n in worst if n.startswith("main-path")][0]
     log(f"kernel cases: {len(worst)} tolerance cases (each bit-identical "
         f"over two calls) + 3 bit-identity pairs + dead lane passed; worst "
         f"|kernel - plain| "
         f"{max(worst.values()):.3e}; at the serving shape {worst[main]:.3e}")
     return worst[main]
+
+
+def _staged_layout(torch, C, K, run, dtype, report):
+    """Kernel 1 on the main-path pages at P and at the async paged engine's
+    layout P + S (live K/V and mask bits in the unmapped staging slots),
+    told ``reserved_slots=S``: bit-identical output and relevance, so the
+    async and sync arms decode the same tokens.  The split it would take
+    from P + S itself is checked against the plain version only."""
+    plain, staged, S = C.staged_layout_pair(dtype)
+    P = plain.inputs["page_table"].shape[1]
+    out_p, rel_p = run(K.paged_decode_attention_cuda, plain.inputs, dtype)
+    xs = C.call_args(C.to_torch(staged.inputs, dtype, "cuda"))
+    out_s, rel_s = K.paged_decode_attention_cuda(*xs, reserved_slots=S)
+    out_u, rel_u = K.paged_decode_attention_cuda(*xs)
+    torch.cuda.synchronize()
+    out_s, rel_s = out_s.float().cpu().numpy(), rel_s.cpu().numpy()
+    np.testing.assert_array_equal(out_s, out_p, f"staged {dtype}: out")
+    np.testing.assert_array_equal(rel_s[:, :P], rel_p, f"staged {dtype}: rel")
+    np.testing.assert_array_equal(rel_s[:, P:], 0.0)
+    out_u = out_u.float().cpu().numpy()
+    np.testing.assert_allclose(out_u, out_p, **C.TOLS[dtype])
+    np.testing.assert_allclose(rel_u.cpu().numpy()[:, :P], rel_p,
+                               **C.TOLS[dtype])
+    differs = int((out_u != out_p).sum())
+    log(f"kernel 1 staged layout {dtype}: P = {P} and P + S = {P + S} "
+        f"pools with reserved_slots={S} bit-identical (blocks of "
+        f"{K.pages_per_block(P)} page); a split from P + S itself "
+        f"({K.pages_per_block(P + S)} pages a block) differs in {differs} "
+        f"of {out_u.size} outputs")
+    report.write(f"{staged.name}: bit-identical to {plain.name} with "
+                 f"reserved_slots={S}\n")
 
 
 def phase_contiguous_kernel_cases(torch, CC, K2, K3, R, report):
@@ -301,9 +345,12 @@ def _fifo(torch, launcher, engine, requests, profile=None):
         if prof is not None and pure and i == profile.start:
             prof.start()
             window["on"] = True
+        w0 = engine.wall_step
         t0 = time.perf_counter()
         out = orig()
         torch.cuda.synchronize()
+        # an async engine's last call of a wave only drains the ring
+        pure = pure and engine.wall_step > w0
         if pure:
             step_ms.append(1e3 * (time.perf_counter() - t0))
             if window["on"]:
@@ -374,58 +421,85 @@ REFERENCE_TRACES = {
 }
 
 
+# the arms every card-vs-CPU trace runs: the default async pipeline on the
+# card, and the synchronous one on the card and on the CPU
+ARMS = (("card async", "cuda", True), ("card sync", "cuda", False),
+        ("CPU sync", "cpu", False))
+
+
 def _reference_trace(K, launcher, MD, engine_mod, cfg_mod, spec):
-    """Serve one trace on the card (kernel) and on the CPU (plain); the
-    tokens, rewinds and paging counters must be identical."""
+    """Serve one trace on the card (kernel) async and sync and on the CPU
+    (plain) sync; the tokens, rewinds and paging counters must be
+    identical, and the sync arms' steps and peak KV too."""
     import dataclasses
     cfg = launcher.launcher_config("llama3-8b", tiny=True)
     cfg = dataclasses.replace(cfg, dtype="float32", freeze=dataclasses.replace(
         cfg.freeze, **spec["freeze"]))
     params_cpu = MD.init_params(cfg, SEED, "cpu")
-    params_gpu = _to_device(params_cpu, "cuda")
+    params = {"cpu": params_cpu, "cuda": _to_device(params_cpu, "cuda")}
     rng = np.random.RandomState(SEED)
     prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
                for n in spec["prompts"]]
     sp = engine_mod.SamplingParams.greedy()
     runs = {}
-    for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
-        sv = cfg_mod.ServingConfig(**spec["serving"])
-        eng = engine_mod.PagedContinuousEngine(cfg, params, sv, device=dev)
+    for arm, dev, is_async in ARMS:
+        sv = cfg_mod.ServingConfig(**spec["serving"],
+                                   async_pipeline=is_async)
+        eng = engine_mod.PagedContinuousEngine(cfg, params[dev], sv,
+                                               device=dev)
         reqs = [engine_mod.Request(u, p, n, sp)
                 for u, (p, n) in enumerate(zip(prompts, spec["n_toks"]))]
         before = K.paged_decode_attention_cuda.launches
         launcher.serve_fifo(eng, reqs)
         launched = K.paged_decode_attention_cuda.launches - before
         ctl = eng.ctl
-        assert not ctl.store and not ctl.frozen_meta, dev
-        runs[dev] = dict(
+        assert not ctl.store and not ctl.frozen_meta, arm
+        assert not ctl.staged_keys and not ctl.pending_remaps, arm
+        runs[arm] = dict(
             tokens=[r.result for r in reqs], launched=launched,
             steps=eng.wall_step, rewinds=[r.telemetry.rewinds for r in reqs],
             counters=(ctl.n_swap_out, ctl.n_swap_in, ctl.n_thaw),
-            peak_kv=eng.peak_kv_bytes)
-    g, c = runs["cuda"], runs["cpu"]
-    assert g["launched"] == g["steps"] * cfg.num_layers and c["launched"] == 0
-    for u, (a, b) in enumerate(zip(g["tokens"], c["tokens"])):
-        np.testing.assert_array_equal(a, b, f"request {u}: card vs CPU")
-    for key in ("steps", "rewinds", "counters", "peak_kv"):
-        assert g[key] == c[key], (key, g[key], c[key])
-    return g
+            peak_kv=eng.peak_kv_bytes, remap=ctl.n_thaw_remap,
+            blocked=eng.stats.host_blocked_fraction, stage=eng.S_stage)
+    ga, gs, c = (runs[a] for a, _, _ in ARMS)
+    assert ga["launched"] == ga["steps"] * cfg.num_layers
+    assert gs["launched"] == gs["steps"] * cfg.num_layers
+    assert c["launched"] == 0
+    assert (ga["stage"], gs["stage"], c["stage"]) == (3, 0, 0)
+    for arm in ("card async", "card sync"):
+        for u, (a, b) in enumerate(zip(runs[arm]["tokens"], c["tokens"])):
+            np.testing.assert_array_equal(a, b, f"request {u}: {arm} vs CPU")
+        for key in ("rewinds", "counters"):
+            assert runs[arm][key] == c[key], (arm, key, runs[arm][key],
+                                              c[key])
+    for key in ("steps", "peak_kv"):
+        assert gs[key] == c[key], (key, gs[key], c[key])
+    assert gs["blocked"] == 1.0 and ga["blocked"] < 1.0, (gs["blocked"],
+                                                          ga["blocked"])
+    return ga, gs
 
 
 def phase_reference(K, launcher, MD, engine_mod, cfg_mod):
-    """Tiny f32 model, greedy: card (kernel) and CPU (plain) must agree on
-    a swapping trace and on a thaw/rewind trace."""
+    """Tiny f32 model, greedy: card (kernel) async and sync and CPU (plain)
+    sync must agree on a swapping trace and on a thaw/rewind trace, where
+    the async arm must also install at least half of its thaws from its
+    staging slots."""
     for name, spec in REFERENCE_TRACES.items():
-        g = _reference_trace(K, launcher, MD, engine_mod, cfg_mod, spec)
-        out, inn, thaw = g["counters"]
+        ga, gs = _reference_trace(K, launcher, MD, engine_mod, cfg_mod, spec)
+        out, inn, thaw = ga["counters"]
         if name == "bounded_swap":
-            assert out > 0, g["counters"]
+            assert out > 0, ga["counters"]
         else:
-            assert thaw > 0 and sum(g["rewinds"]) > 0, (thaw, g["rewinds"])
+            assert thaw > 0 and sum(ga["rewinds"]) > 0, (thaw, ga["rewinds"])
+            assert ga["remap"] >= 0.5 * thaw, (ga["remap"], thaw)
         log(f"reference {name}: tiny f32 greedy, {len(spec['prompts'])} "
-            f"requests, {g['steps']} steps: card (kernel) == CPU (plain) "
-            f"tokens, swaps {out} out / {inn} in, {thaw} thawed, rewinds "
-            f"{g['rewinds']}, peak KV {g['peak_kv']} B on both")
+            f"requests: card async ({ga['steps']} steps, host-blocked "
+            f"{ga['blocked']:.3f}) == card sync ({gs['steps']} steps, "
+            f"host-blocked {gs['blocked']:.3f}) == CPU sync tokens and "
+            f"counters; swaps {out} out / {inn} in, {thaw} thawed "
+            f"({ga['remap']} remap-only on the card async), rewinds "
+            f"{ga['rewinds']}; sync peak KV {gs['peak_kv']} B on card and "
+            f"CPU (async {ga['peak_kv']} B with the staging slots)")
 
 
 # card-vs-CPU traces of the contiguous engine (tiny model, f32, greedy):
@@ -504,11 +578,11 @@ def phase_contiguous_reference(torch, kernels, launcher, MD, engine_mod,
         prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
                    for n in spec["prompts"]]
         runs = {}
-        for dev in ("cuda", "cpu"):
-            params = _to_device(params_cpu, dev)
+        params = {"cpu": params_cpu, "cuda": _to_device(params_cpu, "cuda")}
+        for arm, dev, is_async in ARMS:
             eng = engine_mod.ContinuousEngine(
-                cfg, params, cfg_mod.ServingConfig(**spec["serving"]),
-                device=dev)
+                cfg, params[dev], cfg_mod.ServingConfig(
+                    **spec["serving"], async_pipeline=is_async), device=dev)
             reqs = [engine_mod.Request(u, p, n,
                                        engine_mod.SamplingParams.greedy())
                     for u, (p, n) in enumerate(zip(prompts,
@@ -517,25 +591,32 @@ def phase_contiguous_reference(torch, kernels, launcher, MD, engine_mod,
             with _MarginRecorder(torch, ops, freeze_mod) as rec:
                 launcher.serve_fifo(eng, reqs)
             off = eng.offloader
-            runs[dev] = dict(
+            runs[arm] = dict(
                 tokens=[r.result for r in reqs], steps=eng.wall_step,
                 launched=_read_counts(kernels),
                 rewinds=[r.telemetry.rewinds for r in reqs],
                 frozen=[r.telemetry.frozen_kv for r in reqs],
                 counters=(off.n_offloads, off.n_restores),
-                margin=rec.min_margin())
-        g, c = runs["cuda"], runs["cpu"]
-        for u, (a, b) in enumerate(zip(g["tokens"], c["tokens"])):
-            i = _first_divergence(a, b)
-            assert i is None, (
-                f"{name} request {u}: card and CPU tokens diverge at "
-                f"generated token {i}; smallest |relevance - tau| margin "
-                f"card {g['margin']:.3e}, CPU {c['margin']:.3e}")
-        for key in ("steps", "rewinds", "frozen", "counters"):
-            assert g[key] == c[key], (name, key, g[key], c[key])
-        n = g["steps"] * cfg.num_layers
-        assert g["launched"]["freeze_decode_attention"] == n, (g["launched"], n)
-        assert g["launched"]["relevance_freeze_update"] == n
+                margin=rec.min_margin(),
+                blocked=eng.stats.host_blocked_fraction)
+        ga, g, c = (runs[a] for a, _, _ in ARMS)
+        for arm in ("card async", "card sync"):
+            for u, (a, b) in enumerate(zip(runs[arm]["tokens"],
+                                           c["tokens"])):
+                i = _first_divergence(a, b)
+                assert i is None, (
+                    f"{name} request {u}: {arm} and CPU tokens diverge at "
+                    f"generated token {i}; smallest |relevance - tau| "
+                    f"margin card {runs[arm]['margin']:.3e}, CPU "
+                    f"{c['margin']:.3e}")
+            for key in ("rewinds", "frozen", "counters"):
+                assert runs[arm][key] == c[key], (name, arm, key,
+                                                  runs[arm][key], c[key])
+            n = runs[arm]["steps"] * cfg.num_layers
+            for k in ("freeze_decode_attention", "relevance_freeze_update"):
+                assert runs[arm]["launched"][k] == n, (arm, runs[arm][
+                    "launched"], n)
+        assert g["steps"] == c["steps"], (g["steps"], c["steps"])
         assert not any(c["launched"].values()), c["launched"]
         assert max(max(f) for f in g["frozen"]) > 0, name
         if name == "freeze_offload":
@@ -543,8 +624,10 @@ def phase_contiguous_reference(torch, kernels, launcher, MD, engine_mod,
         else:
             assert sum(g["rewinds"]) > 0, g["rewinds"]
         log(f"reference contiguous {name}: tiny f32 greedy, "
-            f"{len(prompts)} requests, {g['steps']} steps: card (kernels) "
-            f"== CPU (plain) tokens, offloads {g['counters'][0]} out / "
+            f"{len(prompts)} requests: card async ({ga['steps']} steps, "
+            f"host-blocked {ga['blocked']:.3f}) == card sync ({g['steps']} "
+            f"steps) == CPU sync tokens and counters, offloads "
+            f"{g['counters'][0]} out / "
             f"{g['counters'][1]} restored, rewinds {g['rewinds']}; closest "
             f"freeze decision |relevance - tau| {g['margin']:.3e}")
     # Engine.generate (the Table-1 protocol) at tiny width
@@ -624,6 +707,11 @@ def _serve_main(torch, launcher, engine_mod, cfg, engine, kernels):
     assert all(np.isfinite(r.telemetry.entropy).all() for r in done)
     for line in launcher.summary_lines(engine, done, seconds, 4):
         log(f"  {line}")
+    st = engine.stats
+    arm = (f"{'async' if engine.ring.depth else 'sync'} pipeline: "
+           f"host_blocked_fraction {st.host_blocked_fraction:.4f} "
+           f"({st.blocked_steps}/{st.steps} steps), blocked_s "
+           f"{st.blocked_s:.4f}, waited_s {st.waited_s:.4f}")
     tokens = sum(len(r.result) for r in done)
     half = len(step_ms) // 2
     timing = (f"decode step median {statistics.median(step_ms):.2f} ms over "
@@ -633,7 +721,7 @@ def _serve_main(torch, launcher, engine_mod, cfg, engine, kernels):
               f"{tokens / seconds:.1f} tokens/s end to end incl. prefill "
               f"({tokens} tokens in {seconds:.2f} s); max_memory_allocated "
               f"{peak_gib:.2f} GiB; kv_device_bytes {engine.kv_device_bytes}")
-    return done, counts, timing, engine.wall_step
+    return done, counts, f"{arm}; {timing}", engine.wall_step
 
 
 def _profile_serve(torch, launcher, engine_mod, cfg, engine, card_line, tag):
@@ -647,63 +735,109 @@ def _profile_serve(torch, launcher, engine_mod, cfg, engine, card_line, tag):
     _profile_summary(torch, prof, prof_ms, card_line, tag)
 
 
+# the full-width serves' two arms: the default config first (the main
+# path, whose launch counts go in the kernels line), then --no-async
+MAIN_ARMS = (("async (default)", True), ("--no-async", False))
+
+
+def _same_tokens(arms, what):
+    """Both arms' requests, by uid: identical tokens, and the async arm
+    blocks the host on fewer steps."""
+    (la, a), (ls, b) = arms.items()
+    assert sorted(a["tokens"]) == sorted(b["tokens"]), what
+    for uid, toks in a["tokens"].items():
+        i = _first_divergence(toks, b["tokens"][uid])
+        assert i is None, f"{what} request {uid}: {la} and {ls} tokens " \
+                          f"diverge at generated token {i}"
+    assert a["blocked"] < b["blocked"], (what, a["blocked"], b["blocked"])
+    log(f"main path {what}: {la} tokens == {ls} tokens for all "
+        f"{len(a['tokens'])} requests; host-blocked fraction "
+        f"{a['blocked']:.4f} < {b['blocked']:.4f}")
+
+
 def phase_main_path(torch, kernels, launcher, engine_mod, cfg_mod, params,
                     card_line):
-    """The paged path: PagedContinuousEngine at full width."""
+    """The paged path: PagedContinuousEngine at full width, in the default
+    config (async pipeline, 3 staging slots a lane) and with --no-async,
+    on the same requests."""
     cfg = _full_width_config(launcher)
-    sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, max_active_pages=8,
-                               prefill_chunk=256, seed=SEED)
-    engine = engine_mod.PagedContinuousEngine(cfg, params, sv, device="cuda")
-    done, counts, timing, steps = _serve_main(torch, launcher, engine_mod,
-                                              cfg, engine, kernels)
-    launches, ctl = counts["paged_decode_attention"], engine.ctl
-    assert launches == steps * cfg.num_layers, (launches, steps)
-    assert counts["freeze_decode_attention"] == 0 and \
-        counts["relevance_freeze_update"] == 0, counts
-    assert ctl.n_swap_out > 0 and ctl.n_swap_in > 0
-    peak_active = max(max(r.telemetry.active_kv) for r in done)
-    assert peak_active <= 8 * 64, peak_active
-    assert not ctl.store and not ctl.frozen_meta
-    log(f"main path paged [{card_line}], no profiler: {steps} decode steps, "
-        f"{launches} kernel launches (= steps x 32); pure {timing}; peak "
-        f"per-lane active KV {peak_active:.0f} slots; swaps {ctl.n_swap_out} "
-        f"out / {ctl.n_swap_in} in / {ctl.n_thaw} thawed; "
-        f"{sum(r.telemetry.rewinds for r in done)} rewinds")
-    _profile_serve(torch, launcher, engine_mod, cfg, engine, card_line,
-                   "paged")
-    del engine
-    torch.cuda.empty_cache()
-    return launches
+    arms = {}
+    for label, is_async in MAIN_ARMS:
+        sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4,
+                                   max_active_pages=8, prefill_chunk=256,
+                                   seed=SEED, async_pipeline=is_async)
+        engine = engine_mod.PagedContinuousEngine(cfg, params, sv,
+                                                  device="cuda")
+        done, counts, timing, steps = _serve_main(torch, launcher, engine_mod,
+                                                  cfg, engine, kernels)
+        launches, ctl = counts["paged_decode_attention"], engine.ctl
+        assert launches == steps * cfg.num_layers, (launches, steps)
+        assert counts["freeze_decode_attention"] == 0 and \
+            counts["relevance_freeze_update"] == 0, counts
+        assert ctl.n_swap_out > 0 and ctl.n_swap_in > 0
+        peak_active = max(max(r.telemetry.active_kv) for r in done)
+        assert peak_active <= 8 * 64, peak_active
+        assert not ctl.store and not ctl.frozen_meta
+        assert engine.S_stage == (3 if is_async else 0)
+        log(f"main path paged {label} [{card_line}], no profiler: {steps} "
+            f"decode steps, {launches} kernel launches (= steps x 32), pool "
+            f"P = {engine.P} + {engine.S_stage} a lane; {timing}; peak "
+            f"per-lane active KV {peak_active:.0f} slots; swaps "
+            f"{ctl.n_swap_out} out / {ctl.n_swap_in} in / {ctl.n_thaw} "
+            f"thawed ({ctl.n_thaw_remap} remap-only); "
+            f"{engine.n_boundary_ticks} boundary ticks, {engine.n_kv_pushes} "
+            f"K/V pushes; {sum(r.telemetry.rewinds for r in done)} rewinds")
+        arms[label] = dict(tokens={r.uid: r.result for r in done},
+                           blocked=engine.stats.host_blocked_fraction,
+                           launches=launches)
+        if is_async:
+            _profile_serve(torch, launcher, engine_mod, cfg, engine,
+                           card_line, "paged")
+        del engine
+        torch.cuda.empty_cache()
+    _same_tokens(arms, "paged")
+    return arms[MAIN_ARMS[0][0]]["launches"]
 
 
 def phase_contiguous_main_path(torch, kernels, launcher, engine_mod,
                                cfg_mod, params, card_line):
     """Main path 2: ContinuousEngine at full width with the launcher's
-    freeze settings, host offload and recovery."""
+    freeze settings, host offload and recovery, in the default config
+    (async pipeline) and with --no-async, on the same requests."""
     cfg = _full_width_config(launcher)
-    sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, seed=SEED)
-    engine = engine_mod.ContinuousEngine(cfg, params, sv, device="cuda")
-    done, counts, timing, steps = _serve_main(torch, launcher, engine_mod,
-                                              cfg, engine, kernels)
-    off = engine.offloader
-    for name in ("freeze_decode_attention", "relevance_freeze_update"):
-        assert counts[name] == steps * cfg.num_layers, (name, counts, steps)
-    assert counts["paged_decode_attention"] == 0, counts
-    assert off.n_offloads > 0, off.n_offloads
-    frozen = max(max(r.telemetry.frozen_kv) for r in done)
-    log(f"main path contiguous [{card_line}], no profiler: {steps} decode "
-        f"steps, {counts['freeze_decode_attention']} masked-attention and "
-        f"{counts['relevance_freeze_update']} freeze-update launches (each = "
-        f"steps x 32); {timing}; peak frozen KV {frozen:.1f} slots a layer; "
-        f"offloads {off.n_offloads} out / {off.n_restores} restored, "
-        f"{off.moved_bytes} bytes moved (D2H {engine.stats.d2h_bytes} B "
-        f"incl. the per-step fetch); "
-        f"{sum(r.telemetry.rewinds for r in done)} rewinds")
-    _profile_serve(torch, launcher, engine_mod, cfg, engine, card_line,
-                   "contiguous")
-    del engine
-    torch.cuda.empty_cache()
-    return counts
+    arms = {}
+    for label, is_async in MAIN_ARMS:
+        sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, seed=SEED,
+                                   async_pipeline=is_async)
+        engine = engine_mod.ContinuousEngine(cfg, params, sv, device="cuda")
+        done, counts, timing, steps = _serve_main(torch, launcher, engine_mod,
+                                                  cfg, engine, kernels)
+        off = engine.offloader
+        for name in ("freeze_decode_attention", "relevance_freeze_update"):
+            assert counts[name] == steps * cfg.num_layers, (name, counts,
+                                                            steps)
+        assert counts["paged_decode_attention"] == 0, counts
+        assert off.n_offloads > 0, off.n_offloads
+        frozen = max(max(r.telemetry.frozen_kv) for r in done)
+        log(f"main path contiguous {label} [{card_line}], no profiler: "
+            f"{steps} decode steps, {counts['freeze_decode_attention']} "
+            f"masked-attention and {counts['relevance_freeze_update']} "
+            f"freeze-update launches (each = steps x 32); {timing}; peak "
+            f"frozen KV {frozen:.1f} slots a layer; offloads "
+            f"{off.n_offloads} out / {off.n_restores} restored, "
+            f"{off.moved_bytes} bytes moved (D2H {engine.stats.d2h_bytes} B "
+            f"incl. the per-step fetch); "
+            f"{sum(r.telemetry.rewinds for r in done)} rewinds")
+        arms[label] = dict(tokens={r.uid: r.result for r in done},
+                           blocked=engine.stats.host_blocked_fraction,
+                           counts=counts)
+        if is_async:
+            _profile_serve(torch, launcher, engine_mod, cfg, engine,
+                           card_line, "contiguous")
+        del engine
+        torch.cuda.empty_cache()
+    _same_tokens(arms, "contiguous")
+    return arms[MAIN_ARMS[0][0]]["counts"]
 
 
 def phase_table1(torch, kernels, launcher, engine_mod, params, card_line):
@@ -788,25 +922,42 @@ def _graph_ms(torch, fn, n_inner, replays=40):
     return start.elapsed_time(end) / (replays * n_inner)
 
 
-def _device_events(torch, fns, calls):
-    """Device-side profiler events of ``calls`` calls of each of ``fns``
-    in one session (retried: a session that records no kernel at all is
-    the profiler's failure, not ours)."""
+LAUNCH_SESSIONS = 5     # profiler sessions tried before the phase fails
+
+
+def _launches_per_call(torch, runs, calls):
+    """Kernel launches a call of each of ``runs`` ({name: (fn, kernel
+    names)}), read from the device trace of one profiler session over
+    ``calls`` calls each, and the device work of no listed kernel.  A
+    session whose count for a run is not a whole number of launches a call
+    (or zero) dropped events — the profiler's failure, not the kernel's —
+    and is retried, up to ``LAUNCH_SESSIONS`` sessions; then the phase
+    fails."""
     cuda_t = torch.autograd.DeviceType.CUDA
-    for fn in fns:
+    names = [k for _, kernels in runs.values() for k in kernels]
+    for fn, _ in runs.values():
         fn()
-    for attempt in range(3):
+    for session in range(1, LAUNCH_SESSIONS + 1):
         torch.cuda.synchronize()
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for fn in fns:
+            for fn, _ in runs.values():
                 for _ in range(calls):
                     fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.device_type == cuda_t]
-        if events:
-            return events
-    return events
+        counts = {name: sum(e.count for e in events
+                            if any(k in e.key for k in kernels))
+                  for name, (_, kernels) in runs.items()}
+        other = sorted(e.key[:60] for e in events
+                       if not any(k in e.key for k in names))
+        if all(n > 0 and n % calls == 0 for n in counts.values()):
+            return {name: n // calls for name, n in counts.items()}, other
+        log(f"launch counts: profiler session {session} recorded {counts} "
+            f"launches over {calls} calls each, not a whole number a call; "
+            f"retrying")
+    raise AssertionError(f"launch counts: {LAUNCH_SESSIONS} profiler "
+                         f"sessions gave no whole count: {counts}")
 
 
 def phase_launch_counts(torch, C, CC, K, K2, K3):
@@ -826,25 +977,21 @@ def phase_launch_counts(torch, C, CC, K, K2, K3):
             "freeze_decode_attention": (
                 lambda: K2.freeze_decode_attention_cuda(*x2),
                 ("freeze_attn_kernel", "freeze_combine_kernel"))}
-    events = _device_events(torch, [fn for fn, _ in runs.values()], calls)
-    counts = {name: sum(e.count for e in events
-                        if any(k in e.key for k in kernels)) / calls
-              for name, (_, kernels) in runs.items()}
+    counts, other = _launches_per_call(torch, runs, calls)
     for name, n in counts.items():
-        assert 0 < n <= 2, (name, n, [e.key[:60] for e in events])
+        assert 0 < n <= 2, (name, n, other)
     # the decode step's call: in place, no mask, the lane counts added
     fcase = [c for c in CC.freeze_cases() if c.name.startswith("main-path")][0]
     fcfg = FreezeConfig(**fcase.cfg)
     fst, frel, fpos, fstep = CC.freeze_args(fcase, "cuda")
     fst = FreezeState(*(t.clone() for t in fst))
     fcount = torch.zeros((frel.shape[0],), dtype=torch.int32, device="cuda")
-    events = _device_events(torch, [lambda: K3.relevance_freeze_cuda(
-        fst, frel, fpos, fstep, fcfg, out=fst, active=False,
-        active_count=fcount)], calls)
-    keys = {e.key for e in events}
-    n3 = sum(e.count for e in events) / calls
-    assert n3 == 1 and all("relevance_freeze_kernel" in k for k in keys), \
-        (n3, keys)
+    n3, other = _launches_per_call(torch, {"relevance_freeze_update": (
+        lambda: K3.relevance_freeze_cuda(
+            fst, frel, fpos, fstep, fcfg, out=fst, active=False,
+            active_count=fcount), ("relevance_freeze_kernel",))}, calls)
+    n3 = n3["relevance_freeze_update"]
+    assert n3 == 1 and not other, (n3, other)
     counts["relevance_freeze_update"] = n3
     log("kernel launches a call (profiler): " + ", ".join(
         f"{k} {v:g}" for k, v in counts.items())
@@ -852,12 +999,14 @@ def phase_launch_counts(torch, C, CC, K, K2, K3):
     return counts
 
 
-def phase_timing(torch, C, K, ref, card_line):
-    """Kernel, plain version and SDPA yardstick at the serving shape."""
+def phase_timing(torch, C, K, ref, card_line, case, reserved=0):
+    """Kernel, plain version and SDPA yardstick at the serving shape: the
+    pages of ``case``, the last ``reserved`` of its slots being the async
+    engine's staging slots (unmapped)."""
     import torch.nn.functional as F
-    case = C.main_path_case()
     x = C.to_torch(case.inputs, case.dtype, "cuda")
-    B, P, page, H, KVH, hd = C.MAIN_PATH_SHAPE
+    B, P, page, KVH, hd = x["k_pages"].shape
+    H = x["q"].shape[1]
     # the engine passes every table: no quant flag set, unit scales
     x["page_quant"] = torch.zeros((B, P), dtype=torch.int32, device="cuda")
     x["kv_scales"] = torch.ones((B, P, 2, KVH), dtype=torch.float32,
@@ -872,7 +1021,7 @@ def phase_timing(torch, C, K, ref, card_line):
     def kernel(i):
         a = list(args)
         a[1], a[2] = kv[i % n_copies]
-        K.paged_decode_attention_cuda(*a)
+        K.paged_decode_attention_cuda(*a, reserved_slots=reserved)
 
     def plain(i):
         a = list(args)
@@ -932,8 +1081,11 @@ def phase_timing(torch, C, K, ref, card_line):
     lib_l2_ms = _graph_ms(torch, lambda i: F.scaled_dot_product_attention(
         qq, *exp[0], attn_mask=mask), n_copies)
     del exp, kv
-    log(f"timing [{card_line}] at B={B} P={P} page={page} H={H} KVH={KVH} "
-        f"hd={hd} bf16, {n_live} live pages, {live_tokens} valid slots in "
+    ppb = K.pages_per_block(P - reserved)
+    log(f"timing {case.name} [{card_line}] at B={B} P={P} ({reserved} of "
+        f"them staging slots) page={page} H={H} KVH={KVH} hd={hd} bf16, "
+        f"{-(-P // ppb) * KVH * B} blocks of {ppb} page(s), "
+        f"{n_live} live pages, {live_tokens} valid slots in "
         f"them, device time per call "
         f"from CUDA-graph replay: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"(bytes {nbytes}: {bytes_ms:.4f} ms; ops {ops_ms:.4f} ms) = "
@@ -1071,6 +1223,31 @@ def phase_contiguous_timing(torch, CC, K2, K3, R, card_line):
     return k2, k3
 
 
+def phase_bench_async(torch, kernels, card_line):
+    """``launch/bench_async.py`` at smoke scale on the card: the tiny model
+    at f32 through the paged engine, sync and async on the same trace; its
+    own check holds it to the async checks of ``tools/check_bench.py``."""
+    from repro_torch.launch import bench_async
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    res = bench_async.run_async_comparison(smoke=True, device="cuda",
+                                           seed=SEED)
+    dt = time.perf_counter() - t0
+    launched = _read_counts(kernels)["paged_decode_attention"]
+    for line in bench_async.summary_lines(res):
+        log(f"  {line}")
+    (OUT_DIR / "bench_async.json").write_text(json.dumps(
+        {"card": card_line, "async_vs_sync": res}, indent=1))
+    bench_async.check(res)
+    assert launched > 0, launched
+    hb, bt = res["host_blocked_fraction"], res["blocking_transfers"]
+    log(f"bench_async smoke [{card_line}] on the card in {dt:.1f}s: token "
+        f"parity {res['token_parity']}, host-blocked {hb['async']:.4f} "
+        f"async < {hb['sync']:.4f} sync, blocking transfers {bt['async']} < "
+        f"{bt['sync']}, {res['thaws']} thaws, remap fraction "
+        f"{res['thaw_remap_fraction']:.3f}; {launched} kernel launches")
+
+
 def main() -> int:
     name, count, card_line = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
@@ -1114,8 +1291,14 @@ def main() -> int:
     phase_table1(torch, kernels, launcher, engine_mod, params, card_line)
     del params
     torch.cuda.empty_cache()
+    phase_bench_async(torch, kernels, card_line)
+    # kernel 1 at the main path's staged layout (P + S, S reserved; the
+    # kernels line) and at the plain P layout of the --no-async arm
+    plain_case, staged_case, S = C.staged_layout_pair()
     ms, plain_ms, bound_ms, bound_by, lib_ms = phase_timing(
-        torch, C, K, R.paged_decode_attention_ref, card_line)
+        torch, C, K, R.paged_decode_attention_ref, card_line, staged_case, S)
+    phase_timing(torch, C, K, R.paged_decode_attention_ref, card_line,
+                 plain_case)
     k2, k3 = phase_contiguous_timing(torch, CC, K2, K3, R, card_line)
     rows = [
         dict(name="paged_decode_attention", route="cuda",

@@ -6,9 +6,10 @@ per-kv-head ``amax / qmax`` (``1.0`` for an all-zero head).  int8 payloads
 are ``clip(rint(x / scale), -127, 127)``.  fp8 payloads are e4m3 values,
 held on the host as their raw ``uint8`` bits because numpy has no fp8 type;
 the cast goes through ``torch.float8_e4m3fn`` (round to nearest even, as
-``ml_dtypes`` does).  Device pools keep one dtype: a quantized page holds
-its payload *values* widened into the pool dtype, and the kernel multiplies
-by the scales where the page's flag is set.
+``ml_dtypes`` does), with the reference's NaN for what e4m3 cannot hold.
+Device pools keep one dtype: a quantized page holds its payload *values*
+widened into the pool dtype, and the kernel multiplies by the scales where
+the page's flag is set.
 
 The paged engine of this slice serves ``kv_quant="none"`` only; the
 controller keeps its quantized code paths whole, and the kernel's dequant
@@ -28,8 +29,17 @@ _QMAX = {QUANT_INT8: 127.0, QUANT_FP8: 448.0}
 
 
 def _fp8_bits(x: np.ndarray) -> np.ndarray:
-    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-    return t.to(torch.float8_e4m3fn).view(torch.uint8).numpy()
+    """e4m3 bits of ``x`` as ``ml_dtypes.float8_e4m3fn`` gives them.  The
+    format has no infinity: NaN, +-inf and |x| > 464 (past the tie between
+    448 and the next step up) become NaN (0x7F with x's sign bit), where
+    torch's cast saturates them to +-448."""
+    x = np.ascontiguousarray(x, np.float32)
+    bits = torch.from_numpy(x).to(torch.float8_e4m3fn).view(
+        torch.uint8).numpy()
+    nan = ~(np.abs(x) <= 464.0)
+    if nan.any():
+        bits[nan] = np.where(np.signbit(x[nan]), 0xFF, 0x7F)
+    return bits
 
 
 def payload_values(payload: np.ndarray) -> np.ndarray:

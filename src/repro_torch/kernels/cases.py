@@ -286,6 +286,40 @@ def staging_slot_pair():
     return garbage, zeroed, (P - 1,)
 
 
+# speculative staging slots a lane of the async paged engine (the default
+# ``ServingConfig.speculative_slots``)
+STAGING_SLOTS = 3
+
+
+def staged_layout_pair(dtype: str = "bfloat16", S: int = STAGING_SLOTS):
+    """The main-path case at its pool of P pages, and the same pages at the
+    async engine's layout of P + S: the S staging slots after them hold
+    live K/V with every mask bit set but are unmapped, as the engine leaves
+    them.  Called with ``reserved_slots=S``, the kernel must give the P
+    pool's output and relevance bit for bit (relevance 0 on the staging
+    slots).  Returns (P case, P + S case, S)."""
+    base = main_path_case()
+    B, P, page, H, KVH, hd = MAIN_PATH_SHAPE
+    rng = np.random.RandomState(13)
+    extra = _qkv(rng, B, S, page, H, KVH, hd)
+    x = dict(base.inputs)
+    for k in ("k_pages", "v_pages"):
+        x[k] = np.concatenate([x[k], extra[k]], axis=1)
+    x["slot_mask"] = np.concatenate(
+        [x["slot_mask"], np.ones((B, S, page), bool)], axis=1)
+    x["page_table"] = np.concatenate(
+        [x["page_table"], np.full((B, S), -1, np.int32)], axis=1)
+    x["page_visible"] = np.concatenate(
+        [x["page_visible"], np.ones((B, S), bool)], axis=1)
+    shape = (B, P + S, page, H, KVH, hd)
+    plain = dataclasses.replace(base, dtype=dtype)
+    staged = Case("main-path-staged-" + "x".join(map(str, shape)) + "-"
+                  + dtype, dtype, x,
+                  zero_rel_pages=base.zero_rel_pages
+                  + tuple(range(P, P + S)))
+    return plain, staged, S
+
+
 def dead_lane_inputs():
     """Lane 0 has no live page (unmapped, invisible or empty-masked);
     lane 1 is live.  Lane 0 must output zeros and relevance 0."""

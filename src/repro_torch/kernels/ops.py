@@ -32,18 +32,21 @@ def masked_decode_attention(q, k, v, active_mask):
 
 def paged_decode_attention(q, k_pages, v_pages, slot_mask, page_table=None,
                            page_visible=None, page_quant=None,
-                           kv_scales=None):
+                           kv_scales=None, reserved_slots: int = 0):
     """(out (B,H,hd), page_relevance (B,P)) — the paged engine's decode hot
     path.  Unmapped slots (``page_table < 0``) and invisible pages
     (``page_visible`` False) are excluded from the softmax and report
     relevance 0 whatever their K/V or stale mask bits hold (the staging
     slots of the async pipeline rely on this); ``page_quant`` /
     ``kv_scales`` dequantize flagged pages, and None is the unquantized
-    path."""
+    path.  ``reserved_slots``: the pool's last slots are staging slots
+    (never mapped); the kernel chooses its split from the others, so its
+    result does not depend on them."""
     if q.is_cuda:
         return paged_decode_attention_cuda(q, k_pages, v_pages, slot_mask,
                                            page_table, page_visible,
-                                           page_quant, kv_scales)
+                                           page_quant, kv_scales,
+                                           reserved_slots)
     return ref.paged_decode_attention_ref(q, k_pages, v_pages, slot_mask,
                                           page_table, page_visible,
                                           page_quant, kv_scales)

@@ -27,9 +27,11 @@ build, load = LIB.build, LIB.load
 # configs and contract cases), head_dim a power of two up to 128, and pages
 # of at most 256 slots
 GROUPS, MAX_HD, MAX_PAGE = (1, 2, 4), 128, 256
-# a lane's page walk is cut into at most PAGE_SPLITS blocks of
-# pages_per_block(P) consecutive pages each (one page a block at the main
-# path's P = 8: B * KVH * 8 blocks)
+# a lane's page walk is cut into blocks of pages_per_block(P) consecutive
+# pages each, P being the usable pages, at most PAGE_SPLITS blocks of them
+# (one page a block at the main path's P = 8: B * KVH * 8 blocks); the
+# staging slots after them get blocks of the same size, which find them
+# unmapped and merge as nothing
 PAGE_SPLITS = 8
 __all__ = ["GROUPS", "LIB", "PAGE_SPLITS", "build", "load", "nvcc_path",
            "pages_per_block", "paged_decode_attention_cuda"]
@@ -47,17 +49,23 @@ def paged_decode_attention_cuda(
     page_visible: Optional[torch.Tensor] = None,
     page_quant: Optional[torch.Tensor] = None,
     kv_scales: Optional[torch.Tensor] = None,
+    reserved_slots: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out (B, H, hd) in q's dtype, page_relevance (B, P) f32) — the same
     function as ``ref.paged_decode_attention_ref``, on the card.  ``None``
     tables take the reference's defaults (page mapped iff any slot bit is
-    set, every page visible, no quant)."""
+    set, every page visible, no quant).  The split is chosen from the
+    ``P - reserved_slots`` usable pages: the splits over the live pages, and
+    so their summation order, are the same with or without staging slots
+    after them (which must be unmapped), and the result is bit-identical."""
     B, H, hd = q.shape
     _, P, page, KVH, _ = k_pages.shape
     dev = q.device
-    if B < 1 or P < 1 or KVH < 1 or H % KVH:
+    if B < 1 or P < 1 or KVH < 1 or H % KVH \
+            or not 0 <= reserved_slots < P:
         raise ValueError(f"bad shapes: q {tuple(q.shape)}, pool "
-                         f"{tuple(k_pages.shape)}")
+                         f"{tuple(k_pages.shape)}, reserved_slots "
+                         f"{reserved_slots}")
     if H // KVH not in GROUPS or hd > MAX_HD or hd & (hd - 1) \
             or page > MAX_PAGE:
         raise ValueError(f"kernel takes H/KVH in {GROUPS}, hd a power of "
@@ -86,7 +94,7 @@ def paged_decode_attention_cuda(
             ("page_quant", page_quant, (B, P), (torch.int32,)),
             ("kv_scales", kv_scales, (B, P, 2, KVH), (torch.float32,))):
         check_tensor(t, name, shape, dts, dev)
-    ppb = pages_per_block(P)
+    ppb = pages_per_block(P - reserved_slots)
     n_split = -(-P // ppb)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)
     rel = torch.empty((B, P), dtype=torch.float32, device=dev)

@@ -14,6 +14,13 @@ engines, on the card unless ``--device cpu`` is given:
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --paged --pages 8 \
         --max-seq 2048 --prefill-chunk 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged \
+        --device cpu --no-async
+
+Both continuous engines run the async DMA pipeline by default (the
+per-step fetch is consumed one call later; on ``--paged`` likely thaws are
+staged into spare device slots); ``--no-async`` is the synchronous
+baseline with the same decisions and tokens.
 
 The freeze settings match ``repro.launch.serve``: ``--quantile-tau q > 0``
 switches to the adaptive quantile threshold with window 16, k_soft 1.0 and
@@ -94,6 +101,10 @@ def summary_lines(engine: LaneEngine, done: List[Request],
                      f"(peak {engine.peak_kv_bytes} incl. prefill scratch)  "
                      f"page swaps: {ctl.n_swap_out} out / {ctl.n_swap_in} "
                      f"in / {ctl.n_thaw} thawed")
+        lines.append(f"staging: {engine.S_stage} slots a lane (pool "
+                     f"{engine.P} + {engine.S_stage})  boundary ticks: "
+                     f"{engine.n_boundary_ticks}  K/V pushes: "
+                     f"{engine.n_kv_pushes}")
         if ctl.n_thaw:
             lines.append(f"thaw installs: {ctl.n_thaw_remap} remap-only "
                          f"(staged) / {ctl.n_thaw_upload} uploaded")
@@ -103,10 +114,12 @@ def summary_lines(engine: LaneEngine, done: List[Request],
                      f"{off.n_restores} restored, {off.moved_bytes} bytes "
                      f"moved, stash {off.stash_bytes} bytes")
     s = engine.stats
+    mode = "async" if engine.ring.depth else "sync"
     lines.append(f"dma: host-blocked {100 * s.host_blocked_fraction:.0f}% of "
-                 f"steps ({s.blocked_steps}/{s.steps}; sync pipeline)  "
+                 f"steps ({s.blocked_steps}/{s.steps}; {mode} pipeline)  "
                  f"blocking {s.blocking_d2h} D2H / {s.blocking_h2d} H2D  "
-                 f"async {s.async_d2h} D2H / {s.async_h2d} H2D")
+                 f"async {s.async_d2h} D2H / {s.async_h2d} H2D  "
+                 f"blocked_s {s.blocked_s:.4f}  waited_s {s.waited_s:.4f}")
     if engine.fcfg.recovery_enabled:
         rewinds = sum(r.telemetry.rewinds for r in done
                       if r.telemetry is not None)
@@ -147,6 +160,14 @@ def main(argv=None):
                     help="adaptive-tau quantile (0 = paper fixed tau)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the prompts")
+    ap.add_argument("--async", dest="async_pipeline",
+                    action=argparse.BooleanOptionalAction, default=True,
+                    help="async DMA pipeline: the per-step fetch rides a "
+                         "double-buffered ring consumed one call later, and "
+                         "on --paged likely thaws are staged into spare "
+                         "device slots (--no-async: block on every step's "
+                         "fetch, the synchronous baseline with the same "
+                         "decisions and tokens)")
     ap.add_argument("--device", default="cuda",
                     help="torch device ('cuda' or 'cpu')")
     args = ap.parse_args(argv)
@@ -182,7 +203,7 @@ def main(argv=None):
                        enable_freeze=not args.no_freeze,
                        prefill_chunk=args.prefill_chunk,
                        max_active_pages=args.pages if args.paged else None,
-                       seed=args.seed)
+                       seed=args.seed, async_pipeline=args.async_pipeline)
     engine = (PagedContinuousEngine if args.paged else ContinuousEngine)(
         cfg, params, sv, device=device)
     done, seconds = serve_fifo(engine, reqs)

@@ -57,16 +57,22 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, state, pos0):
 
 
 def init_paged_decode_state(cfg: ModelConfig, batch: int,
-                            max_active_pages: int, device=None):
+                            max_active_pages: int, device=None,
+                            staging_slots: int = 0):
+    """``staging_slots`` extra unmapped slots a lane hold speculative thaw
+    uploads (async pipeline); pass the same count to
+    ``decode_step_paged(reserved_slots=...)``."""
     _decoder_only(cfg)
-    return T.init_paged_decode_state(cfg, batch, max_active_pages, device)
+    return T.init_paged_decode_state(cfg, batch, max_active_pages, device,
+                                     staging_slots)
 
 
 def decode_step_paged(params, cfg: ModelConfig, token, pos, step, tail_slot,
                       state, freeze_cfg=None, live=None,
-                      enable_freeze: bool = True):
+                      enable_freeze: bool = True, reserved_slots: int = 0):
     return T.lm_decode_step_paged(params, cfg, token, pos, step, tail_slot,
-                                  state, freeze_cfg, live, enable_freeze)
+                                  state, freeze_cfg, live, enable_freeze,
+                                  reserved_slots)
 
 
 def param_count(params) -> int:

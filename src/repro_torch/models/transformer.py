@@ -294,11 +294,18 @@ class PagedDecodeState(NamedTuple):
 
 
 def init_paged_decode_state(cfg: ModelConfig, batch: int,
-                            max_active_pages: int,
-                            device=None) -> PagedDecodeState:
+                            max_active_pages: int, device=None,
+                            staging_slots: int = 0) -> PagedDecodeState:
+    """``staging_slots`` extra physical slots a lane beyond
+    ``max_active_pages`` hold the async pipeline's speculative thaw
+    uploads: they stay unmapped (page table -1, so attention and the freeze
+    schedule skip them) until the host remaps a staged page.  The decode
+    step must then get ``reserved_slots=staging_slots``, so its forced-freeze
+    headroom and the attention kernel's split see ``max_active_pages``
+    usable slots."""
     dt = L.torch_dtype(cfg.dtype)
     la = max(attn_layer_count(cfg), 1)
-    P, page = max_active_pages, cfg.freeze.page_size
+    P, page = max_active_pages + staging_slots, cfg.freeze.page_size
     kvh, hd = max(cfg.num_kv_heads, 1), cfg.head_dim
     fz = init_page_freeze_state(batch, P, device)
     fz = PageFreezeState(*(a.expand((la,) + a.shape).contiguous()
@@ -384,6 +391,7 @@ def lm_decode_step_paged(
     freeze_cfg: Optional[FreezeConfig] = None,
     live: Optional[torch.Tensor] = None,   # (B,) bool; False lanes don't write
     enable_freeze: bool = True,
+    reserved_slots: int = 0,       # staging slots at the end of each pool
 ) -> Tuple[torch.Tensor, PagedDecodeState, Dict[str, torch.Tensor]]:
     """Bounded-active decode: attention sees only the device-resident page
     pool (the hand-written kernel on the card), page-granular freeze feeds
@@ -391,7 +399,10 @@ def lm_decode_step_paged(
 
     The pool (K/V, slot masks) and the freeze counters are updated IN
     PLACE, layer by layer; the returned state holds the same tensors plus
-    the new recovery state and the ladder's freeze interventions."""
+    the new recovery state and the ladder's freeze interventions.  The last
+    ``reserved_slots`` slots of each pool are staging slots: the freeze
+    headroom and the kernel's split leave them out, so a P + S pool with
+    S reserved decodes bit-identically to a plain P pool."""
     fcfg = freeze_cfg or cfg.freeze
     B = token.shape[0]
     dev = token.device
@@ -423,11 +434,13 @@ def lm_decode_step_paged(
         # step re-enters attention and relevance accounting here
         o, prel = OPS.paged_decode_attention(
             q, kp, vp, sm, state.page_table[l], ~fz.frozen,
-            state.page_quant[l], state.kv_scales[l])
+            state.page_quant[l], state.kv_scales[l],
+            reserved_slots=reserved_slots)
         x = x + L.attention_out(lp["attn"], o)
         if enable_freeze:
             new_fz, finfo = page_freeze_update(
-                fz, prel, state.page_table[l], current_page, step, fcfg)
+                fz, prel, state.page_table[l], current_page, step, fcfg,
+                reserved_slots=reserved_slots)
             for dst, src in zip(fz, new_fz):
                 dst.copy_(src)
             nfro = nfro + torch.sum(finfo["n_frozen"])

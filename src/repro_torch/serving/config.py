@@ -9,9 +9,11 @@ port's engines read).
 
 A field only one engine reads is ignored by the other (``offload`` by the
 paged engine, ``max_active_pages`` by the contiguous one, which leaves it
-None).  The port has no legacy keyword surface.  Options the port does not
-serve yet raise at construction: the async pipeline
-(``async_pipeline=True``), chaos injection, speculative thaw staging and
+None).  The port has no legacy keyword surface.  The defaults are the
+reference's: the async DMA pipeline (``async_pipeline=True``) with
+speculative thaw staging following it (``speculative_thaw=None``) into
+``speculative_slots`` staging slots a lane on the paged engine.  Options
+the port does not serve yet raise at construction: chaos injection and
 quantized pages.
 """
 from __future__ import annotations
@@ -35,7 +37,7 @@ class ServingConfig:
     seed: int = 0
     min_prompt_bucket: int = 8
     # ---- pipeline + robustness ---- #
-    async_pipeline: bool = False
+    async_pipeline: bool = True
     chaos: Optional[Any] = None
     stash_budget_bytes: Optional[int] = None
     quarantine_window: int = 64
@@ -51,19 +53,13 @@ class ServingConfig:
     # ---- paged engine ---- #
     max_active_pages: Optional[int] = None      # required by the paged one
     prefill_chunk: int = 64
-    speculative_thaw: Optional[bool] = None
+    speculative_thaw: Optional[bool] = None     # None -> async_pipeline
+    speculative_slots: int = 3
     burst_prefill: bool = True
 
     def __post_init__(self):
-        if self.async_pipeline:
-            raise NotImplementedError(
-                "async_pipeline=True: the port serves the synchronous "
-                "pipeline only so far")
         if self.chaos is not None:
             raise NotImplementedError("chaos injection is not ported yet")
-        if self.speculative_thaw:
-            raise NotImplementedError(
-                "speculative thaw staging is not ported yet")
         if self.kv_quant != "none":
             raise NotImplementedError(
                 f"kv_quant={self.kv_quant!r}: the port's engine serves "

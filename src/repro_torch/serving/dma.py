@@ -1,16 +1,21 @@
-"""Host<->device transfer accounting and the synchronous fetch ring
+"""Host<->device transfer accounting, the fetch ring and host staging
 (PyTorch counterpart of ``repro.serving.dma``).
 
 * ``TransferStats`` — counts every host<->device transfer the engine
   issues, split into *blocking* and *async*; ``host_blocked_fraction`` is
   the share of engine steps that stalled on a blocking transfer.
 * ``FetchRing`` — the per-step device->host fetch (sampled tokens,
-  telemetry, recovery requests).  This slice ports depth 0 only, the
-  synchronous pipeline: the engine pops right after it pushes, and the pop
-  is a blocking copy to numpy.  The async depth-1 ring on CUDA streams is a
-  later slice.
+  telemetry, recovery requests).  Depth 1 is the async pipeline: ``push``
+  starts the copies and the engine pops the entry one call later, so the
+  copy overlaps the host work in between.  On a card the copies run on a
+  side stream into pinned host buffers, one event an entry; on the CPU the
+  same bookkeeping runs with plain copies.  Depth 0 is the synchronous
+  baseline: the engine pops right after it pushes, and the pop is a
+  blocking copy.
 * ``HostStaging`` — reused host buffers for the boundary-tick pool
-  transfers, reallocated only when a shape changes.
+  transfers and the speculative thaw uploads, reallocated only when a
+  shape changes; pinned on a card, with an event guarding each buffer
+  that an async copy still reads.
 """
 from __future__ import annotations
 
@@ -27,6 +32,12 @@ def _nbytes(x) -> int:
         return int(x.nbytes)
     except Exception:                      # scalars / python ints
         return 0
+
+
+def _host_dtype(dt: torch.dtype) -> torch.dtype:
+    """numpy has no bfloat16: its bytes travel as int16 (``device.
+    host_view``)."""
+    return torch.int16 if dt == torch.bfloat16 else dt
 
 
 @dataclasses.dataclass
@@ -117,33 +128,100 @@ class TransferStats:
 
 
 class FetchRing:
-    """Depth-0 device->host fetch ring: ``push(meta, arrays)`` enqueues a
-    step's tensors, ``pop()`` materializes the oldest entry to numpy (a
-    blocking copy).  Entries drain FIFO, so host bookkeeping is applied in
-    push order."""
+    """Fetch ring of depth 0 or 1: ``push(meta, arrays)`` enqueues a step's
+    tensors, ``pop()`` returns the oldest entry as numpy arrays.  Entries
+    drain FIFO, so host bookkeeping is applied in push order whatever the
+    depth — which is what makes async-vs-sync token parity exact.
 
-    def __init__(self, stats: TransferStats, depth: int = 0):
-        if depth != 0:
-            raise NotImplementedError(
-                "only the synchronous (depth-0) ring is ported")
+    Depth 1 on a card: ``push`` clones each tensor on the compute stream
+    (the decode step updates its state in place, so an entry must never
+    alias a tensor the next step rewrites), makes the side copy stream wait
+    for the compute stream, and copies the clones there into pinned host
+    buffers with ``non_blocking`` copies, recording one event for the
+    entry; ``pop`` waits on that event (timed as ``waited_s``) and returns
+    the buffers to the pool.  Depth 1 on the CPU copies at push time.
+    Either way the pop is an *async* transfer.  Depth 0 pops with a
+    blocking copy."""
+
+    def __init__(self, stats: TransferStats, depth: int = 0, device=None):
+        if depth not in (0, 1):
+            raise ValueError("the pipeline is single- or double-buffered")
         self.stats = stats
         self.depth = depth
-        self._entries: List[Tuple[Dict[str, Any], Dict[str, Any]]] = []
+        self.device = torch.device("cpu" if device is None else device)
+        self._stream: Optional[torch.cuda.Stream] = None
+        self._free: Dict[Tuple, List[torch.Tensor]] = {}   # pinned buffers
+        self._entries: List[Tuple[Dict[str, Any], Dict[str, Any], Any]] = []
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def _async_card(self) -> bool:
+        return self.depth == 1 and self.device.type == "cuda"
+
+    def _pinned(self, shape, dtype) -> torch.Tensor:
+        free = self._free.get((tuple(shape), dtype))
+        if free:
+            return free.pop()
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
 
     def push(self, meta: Dict[str, Any], arrays: Dict[str, Any]) -> None:
-        self._entries.append((meta, arrays))
+        if self.depth == 0:
+            self._entries.append((meta, arrays, None))
+            return
+        if not self._async_card:
+            host = {k: v.detach().cpu().numpy().copy()
+                    if isinstance(v, torch.Tensor) else np.asarray(v)
+                    for k, v in arrays.items()}
+            self._entries.append((meta, host, None))
+            return
+        compute = torch.cuda.current_stream(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        srcs = {k: v.detach().clone() for k, v in arrays.items()
+                if isinstance(v, torch.Tensor)}
+        bufs = {k: np.asarray(v) for k, v in arrays.items()
+                if not isinstance(v, torch.Tensor)}
+        self._stream.wait_stream(compute)
+        with torch.cuda.stream(self._stream):
+            for k, src in srcs.items():
+                hd = _host_dtype(src.dtype)
+                buf = self._pinned(src.shape, hd)
+                buf.copy_(src.view(hd) if hd != src.dtype else src,
+                          non_blocking=True)
+                src.record_stream(self._stream)
+                bufs[k] = buf
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        self._entries.append((meta, bufs, done))
 
     def pop(self) -> Optional[Tuple[Dict[str, Any], Dict[str, Any]]]:
-        """Materialize and return the oldest (meta, host arrays) entry."""
+        """Return the oldest (meta, host arrays) entry."""
         if not self._entries:
             return None
-        meta, arrays = self._entries.pop(0)
+        meta, arrays, done = self._entries.pop(0)
         t0 = time.perf_counter()
-        host = {k: v.cpu().numpy() if isinstance(v, torch.Tensor)
-                else np.asarray(v) for k, v in arrays.items()}
+        if done is not None:
+            done.synchronize()
+            host = {k: b.numpy().copy() if isinstance(b, torch.Tensor)
+                    else b for k, b in arrays.items()}
+            for b in arrays.values():         # its copy has landed
+                if isinstance(b, torch.Tensor):
+                    self._free.setdefault((tuple(b.shape), b.dtype),
+                                          []).append(b)
+        elif self.depth == 0:
+            host = {k: v.detach().cpu().numpy()
+                    if isinstance(v, torch.Tensor) else np.asarray(v)
+                    for k, v in arrays.items()}
+        else:
+            host = arrays
         dt = time.perf_counter() - t0
         nbytes = sum(_nbytes(v) for v in host.values())
-        self.stats.note_blocking(nbytes, d2h=True, seconds=dt)
+        if self.depth == 0:
+            self.stats.note_blocking(nbytes, d2h=True, seconds=dt)
+        else:
+            self.stats.note_async(nbytes, d2h=True, seconds=dt)
         return meta, host
 
     def drain(self):
@@ -153,28 +231,61 @@ class FetchRing:
 
 
 class HostStaging:
-    """Reused host staging buffers (the pinned-memory stand-in).
+    """Reused host staging buffers.
 
     ``buf(name, shape, dtype)`` returns a numpy buffer that persists across
     calls; it is reallocated only when the requested shape/dtype changes,
     so the steady-state boundary tick reuses the same allocation for its
-    pull/push staging.  ``put(name, src)`` copies ``src`` into the named
-    buffer and returns it.
+    pulls.  ``pull(name, t)`` copies a tensor into the named buffer (bf16
+    as its int16 bytes) and returns it.  With ``pinned=True`` (a card) the
+    buffers are page-locked, ``tensor(name)`` is the buffer as a torch
+    tensor for an async host-to-device copy, and ``fence(name, event)``
+    marks the buffer as read by a copy in flight: the next ``buf`` of that
+    name waits for the event, so a buffer is never rewritten under a copy.
     """
 
-    def __init__(self):
+    def __init__(self, pinned: bool = False):
+        self.pinned = pinned
         self._bufs: Dict[str, Any] = {}
+        self._tensors: Dict[str, torch.Tensor] = {}
+        self._fences: Dict[str, Any] = {}
 
     def buf(self, name: str, shape, dtype):
+        fence = self._fences.pop(name, None)
+        if fence is not None:
+            fence.synchronize()
         b = self._bufs.get(name)
         if b is None or b.shape != tuple(shape) or b.dtype != np.dtype(dtype):
-            b = np.empty(shape, dtype)
+            if self.pinned:
+                t = torch.from_numpy(np.empty(0, dtype))
+                t = torch.empty(tuple(shape), dtype=t.dtype, pin_memory=True)
+                self._tensors[name] = t
+                b = t.numpy()
+            else:
+                b = np.empty(shape, dtype)
             self._bufs[name] = b
         return b
 
-    def put(self, name: str, src):
-        b = self.buf(name, src.shape, src.dtype)
-        np.copyto(b, src)
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self._bufs[name]
+
+    def tensor(self, name: str) -> torch.Tensor:
+        """The named buffer as a tensor (pinned staging only)."""
+        return self._tensors[name]
+
+    def fence(self, name: str, event) -> None:
+        self._fences[name] = event
+
+    def pull(self, name: str, t: torch.Tensor) -> np.ndarray:
+        """Blocking copy of ``t`` into the named buffer (straight into the
+        pinned buffer on a card)."""
+        hd = _host_dtype(t.dtype)
+        src = t.detach().view(hd) if hd != t.dtype else t.detach()
+        b = self.buf(name, src.shape, torch.empty(0, dtype=hd).numpy().dtype)
+        if self.pinned:
+            self._tensors[name].copy_(src)
+        else:
+            np.copyto(b, src.cpu().numpy())
         return b
 
     @property

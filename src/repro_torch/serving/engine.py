@@ -15,12 +15,18 @@ of ``repro.serving.engine``).
   interleaved with resident decode, and recovery runs page-granular.
 
 The continuous engines' per-step fetch (sampled tokens, telemetry,
-recovery requests) rides a depth-0 ``FetchRing``: it is pushed right
-behind the decode step and popped in the same engine call, so host
-decisions are applied in exactly the order ``repro``'s
-``async_pipeline=False`` engines apply them.  Each paged page-boundary
+recovery requests) rides a ``FetchRing``.  With ``async_pipeline=True``
+(the default) the ring has depth 1: the entry is pushed behind the decode
+step, its copy overlaps the host work that follows, and it is drained at
+the start of the next engine call; with ``async_pipeline=False`` (depth 0)
+it is drained in the same call.  Entries drain FIFO, so both arms apply
+host decisions in exactly the order ``repro``'s ``async_pipeline=False``
+engines apply them and give identical tokens.  Each paged page-boundary
 tick pulls the boundary lanes' pool slices to the host once, runs the
 controller, and pushes them back once (metadata only when no K/V moved).
+The async paged engine also stages likely-thaw pages into
+``speculative_slots`` spare slots a lane, so a thaw installs as a
+page-table remap plus a device-side copy instead of an upload.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 from repro_torch.configs.base import FreezeConfig, ModelConfig
 from repro_torch.core.cache import HostOffloadController, KVCache
 from repro_torch.core.paging import PagedController
+from repro_torch.core.recovery import WR, thaw_priority, thaw_urgency
 from repro_torch.device import from_host, host_view, resolve_device
 from repro_torch.models import model as MD
 from repro_torch.serving.config import ServingConfig
@@ -214,7 +221,8 @@ class _Lane:
 class _LaneEngineBase:
     """Lane management shared by the continuous-batching engines: lane
     accounting, prompt bucketing, per-lane sampling parameters, the fetch
-    ring drain and the admit/finish event log."""
+    ring (depth 1 when ``async_pipeline``) and its drain, and the
+    admit/finish event log."""
 
     def __init__(self, cfg: ModelConfig, params, serving: ServingConfig,
                  device=None):
@@ -258,8 +266,9 @@ class _LaneEngineBase:
         self.quarantine_window = sv.quarantine_window
         self._last_quarantine = np.full(n_lanes, -10**9, np.int64)
         self.robust = {"quarantine_rewinds": 0, "quarantined": 0}
-        self.ring = FetchRing(self.stats, depth=0)
-        self.staging = HostStaging()
+        self.ring = FetchRing(self.stats, depth=1 if sv.async_pipeline else 0,
+                              device=self.device)
+        self.staging = HostStaging(pinned=self.device.type == "cuda")
         self._retired_backlog: List[Request] = []   # retired during admit
                                     # drains; reported by the next step_once
 
@@ -377,6 +386,15 @@ class _LaneEngineBase:
                 finished.extend(self._commit_step(meta, host))
         return finished
 
+    def flush(self) -> List[Request]:
+        """Drain every in-flight fetch and apply its bookkeeping.  Call
+        before reading per-lane host state (``pos``, ``generated``,
+        telemetry) mid-run.  Requests that retire here are returned AND
+        re-reported by the next ``step_once``."""
+        out = self._drain_ring()
+        self._retired_backlog += out
+        return out
+
     def _commit_admit(self, meta: Dict[str, Any], host: Dict[str, Any]
                       ) -> List[Request]:
         lane = meta["lane"]
@@ -432,8 +450,10 @@ class ContinuousEngine(_LaneEngineBase):
 
     The decode step always runs the full ``n_lanes``-wide batch; idle lanes
     decode garbage that the host ignores.  Prompt lengths are padded to
-    power-of-two buckets as in the reference.  Synchronous only: the fetch
-    ring has depth 0."""
+    power-of-two buckets as in the reference.  The async arm drains a
+    step's fetch at the start of the next call (``admit`` drains first, so
+    no entry spans an admission); the offloader's page-reduced freeze mask
+    rides the same entry."""
 
     def __init__(self, cfg: ModelConfig, params, serving: ServingConfig,
                  device=None):
@@ -511,14 +531,16 @@ class ContinuousEngine(_LaneEngineBase):
         req.telemetry = GenerationResult([], [], [], [], [], [], [])
         self._push_admit_token(lane, req, logits)
         self.events.append(event)
-        self._retired_backlog += self._drain_ring()
+        if self.ring.depth == 0:
+            self._retired_backlog += self._drain_ring()
         return lane
 
     # ---------------- stepping ---------------- #
     def step_once(self) -> List[Request]:
-        """One engine call: drain pending fetches, one decode step over
-        all lanes with its fetch pushed and drained in this call.  Returns
-        the requests that retired."""
+        """One engine call: drain the previous call's fetch, then one
+        decode step over all lanes with its fetch pushed (and drained in
+        this call when the ring has depth 0).  Returns the requests that
+        retired."""
         self.stats.begin_step()
         finished = self._retired_backlog + self._drain_ring()
         self._retired_backlog = []
@@ -552,7 +574,8 @@ class ContinuousEngine(_LaneEngineBase):
                 fz.shape[0], fz.shape[1], n_pages, pg).all(dim=-1)
         self.ring.push({"kind": "step", "active": active,
                         "offload": offload}, arrays)
-        finished += self._drain_ring()
+        if self.ring.depth == 0:
+            finished += self._drain_ring()
         self.stats.end_step()
         return finished
 
@@ -677,6 +700,18 @@ class PagedContinuousEngine(_LaneEngineBase):
     ``thaw_request`` (FR: the lane's stashed pages come home at its next
     page-boundary tick, evicting the coldest resident page once the pool
     is full) and ``rr_request`` (RR: a page-aware Rewalk rewind).
+
+    With the async pipeline and speculative thaw on (the defaults),
+    ``speculative_slots`` extra physical slots a lane (``S_stage``; the
+    pool holds ``P_total = P + S_stage``) take uploads of the stashed pages
+    a lane is likely to thaw, ranked as ``thaw_lane`` ranks them, for lanes
+    with a thaw pending or an urgency at WR or above.  A thaw of a staged
+    page then installs as a metadata-only push plus a device-side copy
+    into the slot the upload path would have used.  The decode step leaves
+    the staging slots out of its headroom and its kernel split, so the
+    async arm is token-identical to the sync one.  On a card the uploads
+    run from pinned buffers on a side stream, and the compute stream waits
+    for them (on the device) before anything else touches the pool's K/V.
     """
 
     def __init__(self, cfg: ModelConfig, params, serving: ServingConfig,
@@ -696,8 +731,18 @@ class PagedContinuousEngine(_LaneEngineBase):
         self.max_rewinds = sv.max_rewinds
         self.rewind_cooldown = sv.rewind_cooldown
         self.pending_thaws: set = set()   # lanes owed a host thaw (FR level)
-        self.state = MD.init_paged_decode_state(cfg, self.n_lanes, self.P,
-                                                device=self.device)
+        speculative = sv.async_pipeline if sv.speculative_thaw is None \
+            else sv.speculative_thaw
+        self.S_stage = sv.speculative_slots \
+            if (speculative and self.enable_freeze) else 0
+        if self.S_stage and sv.stash_budget_bytes is not None:
+            raise NotImplementedError(
+                "stash_budget_bytes with speculative thaw staging: the "
+                "stash-budget ladder that gates staging is not ported yet")
+        self.P_total = self.P + self.S_stage
+        self.state = MD.init_paged_decode_state(
+            cfg, self.n_lanes, self.P, device=self.device,
+            staging_slots=self.S_stage)
         self.L_attn = max(self.state.page_table.shape[0], 1)
         if self.state.page_table.shape[0] != cfg.num_layers:
             raise NotImplementedError(
@@ -706,11 +751,19 @@ class PagedContinuousEngine(_LaneEngineBase):
                                    max_active_pages=self.P)
         self.tail_slot = np.zeros((self.L_attn, self.n_lanes), np.int32)
         self.prefills: Dict[int, _PendingPrefill] = {}
+        self._urgency = np.zeros(self.n_lanes, np.float32)  # thaw trend/lane
+        self._kv_host_dtype = host_view(
+            torch.empty(0, dtype=self.state.k.dtype)).dtype
+        self._n_staged = 0           # staging uploads issued (buffer ring)
+        self._uploads: List[Any] = []    # their events, not yet awaited
+        self._upload_stream = None
+        self.n_boundary_ticks = 0   # boundary passes (one pull, one push)
+        self.n_kv_pushes = 0        # pushes that had to carry pool K/V
 
     @property
     def kv_device_bytes(self) -> int:
-        """Live device KV footprint — O(n_lanes * P * page), independent of
-        context length."""
+        """Live device KV footprint — O(n_lanes * P_total * page),
+        independent of context length."""
         return (self.state.k.nbytes + self.state.v.nbytes
                 - self.ctl.device_savings_bytes)
 
@@ -740,12 +793,12 @@ class PagedContinuousEngine(_LaneEngineBase):
     def _pull_lanes(self, lanes: List[int]) -> Tuple[dict, dict]:
         m = len(lanes)
         idx = torch.as_tensor(lanes, device=self.device)
+        self._await_uploads()
         t0 = time.perf_counter()
         out = {}
         for name in self._POOL_FIELDS + self._FZ_FIELDS:
             lane_slice = self._state_field(name).index_select(1, idx)
-            out[name] = self.staging.put(f"pull_{name}_{m}",
-                                         host_view(lane_slice))
+            out[name] = self.staging.pull(f"pull_{name}_{m}", lane_slice)
         dt = time.perf_counter() - t0
         self.stats.note_blocking(sum(a.nbytes for a in out.values()),
                                  d2h=True, seconds=dt)
@@ -757,6 +810,9 @@ class PagedContinuousEngine(_LaneEngineBase):
         """Write the lanes' host slices back into the device state IN
         PLACE (``index_copy_`` along the lane axis)."""
         idx = torch.as_tensor(lanes, device=self.device)
+        if kv:
+            self.n_kv_pushes += 1
+        self._await_uploads()
         fields = (self._POOL_FIELDS + self._FZ_FIELDS) if kv \
             else self._META_FIELDS
         nbytes = 0
@@ -854,6 +910,7 @@ class PagedContinuousEngine(_LaneEngineBase):
         ``PagedController.write_lane`` resets exactly this lane."""
         pp = self.prefills.pop(lane)
         sp, page, P, L = pp.sp, self.page, self.P, self.L_attn
+        P_total = self.P_total
         # wholesale lane reset first: it also clears the lane's recovery
         # ladder, which decode steps during the admission advanced on
         # garbage logits
@@ -872,16 +929,16 @@ class PagedContinuousEngine(_LaneEngineBase):
         r = min(n_pages, P - 1)
         kvh, hd = ck.shape[-2:]
         dt = ck.dtype
-        pool = {"k": np.zeros((L, 1, P, page, kvh, hd), dt),
-                "v": np.zeros((L, 1, P, page, kvh, hd), dt),
-                "page_table": np.full((L, 1, P), -1, np.int32),
-                "slot_mask": np.zeros((L, 1, P, page), bool),
-                "page_quant": np.zeros((L, 1, P), np.int32),
-                "kv_scales": np.ones((L, 1, P, 2, kvh), np.float32)}
-        fstate = {"c": np.zeros((L, 1, P), np.int32),
-                  "d": np.zeros((L, 1, P), np.int32),
-                  "frozen": np.zeros((L, 1, P), bool),
-                  "frozen_at": np.zeros((L, 1, P), np.int32)}
+        pool = {"k": np.zeros((L, 1, P_total, page, kvh, hd), dt),
+                "v": np.zeros((L, 1, P_total, page, kvh, hd), dt),
+                "page_table": np.full((L, 1, P_total), -1, np.int32),
+                "slot_mask": np.zeros((L, 1, P_total, page), bool),
+                "page_quant": np.zeros((L, 1, P_total), np.int32),
+                "kv_scales": np.ones((L, 1, P_total, 2, kvh), np.float32)}
+        fstate = {"c": np.zeros((L, 1, P_total), np.int32),
+                  "d": np.zeros((L, 1, P_total), np.int32),
+                  "frozen": np.zeros((L, 1, P_total), bool),
+                  "frozen_at": np.zeros((L, 1, P_total), np.int32)}
         # write_lane drops the lane's host store, so overflow pages are
         # stashed AFTER it
         self.ctl.write_lane(pool, fstate, 0,
@@ -894,6 +951,11 @@ class PagedContinuousEngine(_LaneEngineBase):
             for layer in range(L):
                 self.ctl.stash(layer, lane, gp, ck[layer, gp], cv[layer, gp],
                                d=1)
+        # the last S_stage slots are the lane's staging slots (write_lane
+        # fills slots 0..P-1 only, and already forgot the staged keys of
+        # the lane's previous occupant)
+        for layer in range(L):
+            self.ctl.stage_slots[(layer, lane)] = list(range(P, P_total))
         self._push_lanes(pool, fstate, [lane])
         if sp % page:                       # partial tail page is resident
             self.tail_slot[:, lane] = r - 1
@@ -912,11 +974,12 @@ class PagedContinuousEngine(_LaneEngineBase):
         return tuple(range(max(0, cp - window_pages), cp + 1))
 
     def step_once(self) -> List[Request]:
-        """One engine call: drain pending fetches, page-boundary
+        """One engine call: drain the previous call's fetch, page-boundary
         maintenance for the lanes that need it, one paged decode step over
-        the resident lanes (its fetch pushed and drained in this call), and
-        one prefill chunk for every admission in flight.  Returns the
-        requests that retired."""
+        the resident lanes with its fetch pushed, speculative thaw staging,
+        and one prefill chunk for every admission in flight; with a depth-0
+        ring the fetch is drained in this call.  Returns the requests that
+        retired."""
         self.stats.begin_step()
         finished = self._retired_backlog + self._drain_ring()
         self._retired_backlog = []
@@ -938,19 +1001,25 @@ class PagedContinuousEngine(_LaneEngineBase):
                 torch.as_tensor(self.tail_slot, device=dev), self.state,
                 freeze_cfg=self.fcfg,
                 live=torch.as_tensor(live, device=dev),
-                enable_freeze=self.enable_freeze)
+                enable_freeze=self.enable_freeze,
+                reserved_slots=self.S_stage)
             self.wall_step += 1
             keys = ("n_active_slots_lane", "n_frozen_pages_lane", "entropy",
-                    "spike", "level", "rr_request", "thaw_request")
+                    "spike", "level", "ema_entropy", "rr_request",
+                    "thaw_request")
             arrays = {k: info[k] for k in keys if k in info}
             arrays["toks"] = sample_batched_perlane(
                 logits, self.lane_seeds, self.step, self._temp, self._topk,
                 self._topp)
             self.ring.push({"kind": "step", "active": list(decode_lanes)},
                            arrays)
+            # stage likely-thaw pages while the step computes: by the time
+            # an FR thaw reaches a boundary tick they install as remaps
+            self._maybe_prefetch(decode_lanes)
         for lane in list(self.prefills):
             self._prefill_tick(lane, busy=bool(decode_lanes))
-        finished += self._drain_ring()
+        if self.ring.depth == 0:
+            finished += self._drain_ring()
         if decode_lanes:
             self.stats.end_step()
         else:
@@ -960,8 +1029,11 @@ class PagedContinuousEngine(_LaneEngineBase):
     def _boundary_tick(self, boundary: List[int]) -> None:
         """Page-boundary maintenance for ``boundary`` lanes: one pull, the
         host controller pass (timer swaps, pending thaws, tail allocation
-        with the force-free backstop), one push."""
+        with the force-free backstop), one push, then the queued staging
+        remaps."""
+        self.n_boundary_ticks += 1
         self.ctl.begin_tick()
+        self._prune_staged()
         pool, fstate = self._pull_lanes(boundary)
         keep = {bi: self._keep_gids(i) for bi, i in enumerate(boundary)}
         thaw = tuple(bi for bi, i in enumerate(boundary)
@@ -989,6 +1061,7 @@ class PagedContinuousEngine(_LaneEngineBase):
                        "out; admission should have rejected this"))
             self.tail_slot[:, i] = slots
         self._push_lanes(pool, fstate, boundary, kv=self.ctl.kv_dirty)
+        self._run_remaps()
 
     def _commit_step(self, meta: Dict[str, Any], host: Dict[str, Any]
                      ) -> List[Request]:
@@ -1020,6 +1093,11 @@ class PagedContinuousEngine(_LaneEngineBase):
                         "level": int(level[i]),
                         "entropy": float(entropy[i]),
                     })
+        # thaw-urgency trend for the speculative prefetcher
+        if entropy is not None and get("ema_entropy") is not None:
+            urg = thaw_urgency(level, entropy, get("ema_entropy"))
+            for i in decode_lanes:
+                self._urgency[i] = urg[i]
 
         if thaw_req is not None:
             for i in decode_lanes:
@@ -1055,6 +1133,147 @@ class PagedContinuousEngine(_LaneEngineBase):
                 finished.append(self._retire(i))
         return finished
 
+    # ---------------- speculative thaw staging ---------------- #
+    def _await_uploads(self) -> None:
+        """Make the compute stream wait (on the device, not the host) for
+        the staging uploads in flight: everything but the decode step that
+        touches the pool's K/V (pulls, pushes, remaps) calls this first."""
+        if self._uploads:
+            stream = torch.cuda.current_stream(self.device)
+            for ev in self._uploads:
+                stream.wait_event(ev)
+            self._uploads = []
+
+    def _prune_staged(self) -> None:
+        """Forget staged copies whose host page vanished (rewind drop,
+        lane reset) — their staging slots become available again."""
+        stale = [k for k in self.ctl.staged_keys
+                 if k not in self.ctl.frozen_meta]
+        for k in stale:
+            del self.ctl.staged_keys[k]
+
+    def _run_remaps(self) -> None:
+        """Execute the controller's queued staging-slot remaps as one
+        batched device-side copy (staging slot -> the install's target
+        slot) after the push: no K/V crosses the host bus, and the used
+        staging slots are free for the next prefetch."""
+        remaps = self.ctl.pending_remaps
+        self.ctl.pending_remaps = []
+        if not remaps:
+            return
+        self._await_uploads()
+        ls, lanes, srcs, dsts = (torch.as_tensor(c, device=self.device)
+                                 for c in zip(*remaps))
+        k, v = self.state.k, self.state.v
+        k[ls, lanes, dsts] = k[ls, lanes, srcs]
+        v[ls, lanes, dsts] = v[ls, lanes, srcs]
+
+    def _stage_write(self, lane: int, layers: List[int], slots: List[int],
+                     k_name: str, v_name: str) -> None:
+        """Write staged pages (the first ``len(layers)`` rows of the two
+        named staging buffers) into ``slots`` of ``layers`` of the lane's
+        pool.  On a card: host-to-device from the pinned buffers on the
+        upload stream, which first waits for the compute stream (a remap
+        or push may still read or write those slots); the event guards
+        the buffers and orders later pool work after the write."""
+        n = len(layers)
+        dt = self.state.k.dtype
+        if self.device.type != "cuda":
+            li, sl = torch.as_tensor(layers), torch.as_tensor(slots)
+            for pool, name in ((self.state.k, k_name),
+                               (self.state.v, v_name)):
+                pool[li, lane, sl] = from_host(self.staging[name][:n], dt)
+            return
+        if self._upload_stream is None:
+            self._upload_stream = torch.cuda.Stream(self.device)
+        up = self._upload_stream
+        up.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(up):
+            li = torch.as_tensor(layers, device=self.device)
+            sl = torch.as_tensor(slots, device=self.device)
+            for pool, name in ((self.state.k, k_name),
+                               (self.state.v, v_name)):
+                src = self.staging.tensor(name)[:n].to(self.device,
+                                                       non_blocking=True)
+                pool[li, lane, sl] = src.view(dt) if src.dtype != dt \
+                    else src
+            done = torch.cuda.Event()
+            done.record(up)
+        self.staging.fence(k_name, done)
+        self.staging.fence(v_name, done)
+        self._uploads.append(done)
+
+    def _maybe_prefetch(self, decode_lanes: List[int]) -> None:
+        """Stage likely-thaw pages for lanes with a thaw pending or an
+        urgency at WR or above, most urgent first: at most ``S_stage``
+        pages (gids) a step, each one upload carrying that page for every
+        layer that has it stashed.  Staging never changes a page table,
+        so a misprediction costs bandwidth, not correctness."""
+        if not self.S_stage:
+            return
+        cands = [i for i in decode_lanes
+                 if i in self.pending_thaws or self._urgency[i] >= WR]
+        cands.sort(key=lambda i: (i not in self.pending_thaws,
+                                  -self._urgency[i]))
+        budget = self.S_stage
+        for lane in cands:
+            while budget and self._prefetch_lane(lane):
+                budget -= 1
+            if not budget:
+                return
+
+    def _prefetch_lane(self, lane: int) -> bool:
+        """Stage the lane's best thaw candidate not staged yet (by
+        ``thaw_priority``, ties by gid, as ``thaw_lane`` ranks them).
+        Returns False when nothing more can be staged."""
+        metas = [(key, m) for key, m in self.ctl.frozen_meta.items()
+                 if key[1] == lane]
+        if not metas:
+            return False
+        gid_score: Dict[int, float] = {}
+        for (l, _, gid), m in metas:
+            sc = thaw_priority(m["c"], m["frozen_at"])
+            gid_score[gid] = max(gid_score.get(gid, -np.inf), sc)
+        staged_gids = {k[2] for k in self.ctl.staged_keys if k[1] == lane}
+        occupied: Dict[int, set] = {}
+        for k, slot in self.ctl.staged_keys.items():
+            if k[1] == lane:
+                occupied.setdefault(k[0], set()).add(slot)
+        want = sorted(gid_score,
+                      key=lambda g: (-gid_score[g], g))[:self.S_stage]
+        shape = (self.L_attn,) + tuple(self.state.k.shape[3:])
+        for gid in want:
+            if gid in staged_gids:
+                continue
+            j = self._n_staged % (2 * self.S_stage)
+            k_name, v_name = f"stage_k_{j}", f"stage_v_{j}"
+            k_buf = self.staging.buf(k_name, shape, self._kv_host_dtype)
+            v_buf = self.staging.buf(v_name, shape, self._kv_host_dtype)
+            layers, slots, sent = [], [], 0
+            for l in range(self.L_attn):
+                key = (l, lane, gid)
+                if key not in self.ctl.frozen_meta:
+                    continue
+                avail = [s for s in self.ctl.stage_slots.get((l, lane), [])
+                         if s not in occupied.get(l, ())]
+                if not avail:
+                    continue
+                kk, vv = self.ctl.store[key]
+                k_buf[len(layers)] = kk
+                v_buf[len(layers)] = vv
+                sent += kk.nbytes + vv.nbytes
+                layers.append(l)
+                slots.append(avail[0])
+            if not layers:
+                continue
+            self._stage_write(lane, layers, slots, k_name, v_name)
+            self._n_staged += 1
+            for l, slot in zip(layers, slots):
+                self.ctl.staged_keys[(l, lane, gid)] = slot
+            self.stats.note_async(sent, d2h=False)
+            return True
+        return False
+
     def _rewind_lane(self, lane: int) -> bool:
         """Rewalk Regeneration on the paged path: rewind ``rewalk_tokens``,
         invalidate the rewound KV slots on device, and make the surviving
@@ -1077,12 +1296,14 @@ class PagedContinuousEngine(_LaneEngineBase):
             # mid-page landing: the tail page must be resident + un-frozen
             # in every layer before decode resumes
             self.ctl.begin_tick()
+            self._prune_staged()
             pool, fstate = self._pull_lanes([lane])
             ok = self.ctl.ensure_resident(pool, fstate, 0, lane, gid_t,
                                           keep_gids=keep)
             # push back even on failure: a partial layer's thaw/eviction
             # mutated both the pulled copies and the host bookkeeping
             self._push_lanes(pool, fstate, [lane], kv=self.ctl.kv_dirty)
+            self._run_remaps()
             if not ok:
                 return False
             for lyr in range(self.L_attn):

@@ -294,7 +294,11 @@ def _continuous_runs(spec):
     rreqs = [RRequest(u, p, n, RSampling.greedy())
              for u, (p, n) in enumerate(zip(prompts, spec["n_toks"]))]
     serve_fifo(ref, rreqs)              # the same loop drives both engines
-    eng = ContinuousEngine(tcfg, tparams, ServingConfig(**spec["serving"]),
+    # the synchronous arm, step for step (the async arm admits one call
+    # later, so its wall steps and event log differ: test_torch_async.py)
+    eng = ContinuousEngine(tcfg, tparams,
+                           ServingConfig(async_pipeline=False,
+                                         **spec["serving"]),
                            device="cpu")
     treqs = [Request(u, p, n, SamplingParams.greedy())
              for u, (p, n) in enumerate(zip(prompts, spec["n_toks"]))]

@@ -157,6 +157,66 @@ def test_tiny_engine_runs_through_the_kernel(card):
     assert eng.ctl.n_swap_out > 0
 
 
+@pytest.mark.parametrize("dtype", C.DTYPES)
+def test_kernel_bit_identical_across_staged_layout(card, dtype):
+    """Kernel 1 on the main-path pages at P and at the async engine's
+    P + S layout (live K/V and mask bits in the unmapped staging slots),
+    told ``reserved_slots=S``: the same output and relevance bit for bit,
+    since the split over the live pages does not change."""
+    plain, staged, S = C.staged_layout_pair(dtype)
+    P = plain.inputs["page_table"].shape[1]
+    out_p, rel_p = _run(K.paged_decode_attention_cuda, plain.inputs, dtype,
+                        card)
+    xs = C.call_args(C.to_torch(staged.inputs, dtype, card))
+    out_s, rel_s = K.paged_decode_attention_cuda(*xs, reserved_slots=S)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out_s.float().cpu().numpy(), out_p)
+    np.testing.assert_array_equal(rel_s[:, :P].cpu().numpy(), rel_p)
+    np.testing.assert_array_equal(rel_s[:, P:].cpu().numpy(), 0.0)
+
+
+def test_tiny_async_engines_match_sync_on_the_card(card):
+    """The tiny model at f32, greedy, through both engines on the card:
+    the async arm (ring on a side stream, staging uploads on another) gives
+    the sync arm's tokens and counters."""
+    import dataclasses
+    from repro_torch.launch.serve import (launcher_config, serve_fifo)
+    from repro_torch.models import model as MD
+    from repro_torch.serving.config import ServingConfig
+    from repro_torch.serving.engine import (ContinuousEngine,
+                                            PagedContinuousEngine, Request)
+    from repro_torch.serving.sampling import SamplingParams
+    cfg = launcher_config("llama3-8b", tiny=True)
+    cfg = dataclasses.replace(cfg, dtype="float32", freeze=dataclasses.
+                              replace(cfg.freeze, page_size=8, window=8,
+                                      quantile=0.6, k_soft=0.7,
+                                      entropy_abs_threshold=0.5,
+                                      rewalk_tokens=6))
+    params = MD.init_params(cfg, 0, card)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (48, 20)]
+    for paged in (True, False):
+        runs = []
+        for is_async in (False, True):
+            sv = ServingConfig(max_seq=256, n_lanes=2, prefill_chunk=16,
+                               rewind_cooldown=12, async_pipeline=is_async,
+                               max_active_pages=6 if paged else None)
+            eng = (PagedContinuousEngine if paged else ContinuousEngine)(
+                cfg, params, sv, device=card)
+            reqs = [Request(u, p, n, SamplingParams.greedy())
+                    for u, (p, n) in enumerate(zip(prompts, (70, 50)))]
+            serve_fifo(eng, reqs)
+            counters = (eng.ctl.n_swap_out, eng.ctl.n_swap_in,
+                        eng.ctl.n_thaw) if paged else \
+                (eng.offloader.n_offloads, eng.offloader.n_restores)
+            runs.append(([r.result.tolist() for r in reqs],
+                         [r.telemetry.rewinds for r in reqs], counters))
+            if paged and is_async:
+                assert eng.ctl.n_thaw_remap > 0
+        assert runs[0] == runs[1], paged
+
+
 def _run_masked(fn, inputs, dtype, device):
     out, rel = fn(*CC.attn_args(inputs, dtype, device))
     torch.cuda.synchronize()

@@ -81,8 +81,11 @@ def test_greedy_token_and_paging_parity(trace):
              for u, (p, n) in enumerate(zip(prompts, spec["n_toks"]))]
     serve_fifo(ref, rreqs)              # the same loop drives both engines
 
+    # the synchronous arm: wall steps and peak KV step for step (the async
+    # arm's staging slots and admission lag are test_torch_async.py's)
     eng = PagedContinuousEngine(tcfg, tparams,
-                                ServingConfig(**spec["serving"]),
+                                ServingConfig(async_pipeline=False,
+                                              **spec["serving"]),
                                 device="cpu")
     treqs = [Request(u, p, n, SamplingParams.greedy())
              for u, (p, n) in enumerate(zip(prompts, spec["n_toks"]))]

@@ -56,14 +56,21 @@ def test_entry_points_raise_without_a_card():
     PagedContinuousEngine(cfg, params, sv, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("async_pipeline", True),
-                                         ("kv_quant", "int8"),
-                                         ("speculative_thaw", True),
+@pytest.mark.parametrize("field,value", [("kv_quant", "int8"),
                                          ("chaos", object())])
 def test_unported_serving_options_raise(field, value):
     with pytest.raises(NotImplementedError):
         ServingConfig(max_seq=64, n_lanes=1, max_active_pages=4,
                       **{field: value})
+
+
+@pytest.mark.parametrize("field", ["async_pipeline", "speculative_thaw",
+                                   "speculative_slots"])
+def test_serving_defaults_match_the_reference(field):
+    """The port deploys what the reference deploys by default: the async
+    pipeline, speculative thaw following it, 3 staging slots a lane."""
+    from repro.serving.config import ServingConfig as RServingConfig
+    assert getattr(ServingConfig(), field) == getattr(RServingConfig(), field)
 
 
 def test_launcher_serves_on_cpu(capsys):
