@@ -26,14 +26,25 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      in the unmapped staging slots) must be bit-identical; each attention
      kernel makes at most two kernel launches a call, the freeze update
      exactly one and no other device work (counted by the profiler at the
-     main-path shape; a session that drops events is retried);
+     main-path shape; a profiler window that drops events is retried);
+     the paged kernel at the async main path's layout with 13 of its 25
+     live pages quantized (int8 and fp8) within bf16 tolerance of its plain
+     version
+     and within ``QUANT_TOLS`` of the unquantized pages, bit-identical to
+     the call without quant operands when no page is flagged, at most two
+     launches a call;
   4. reference check — the tiny model at f32, greedy, served on the card
      through the kernels with the async pipeline and with the synchronous
      one, and on the CPU through the plain versions synchronously: the
      paged engine on a swapping trace and a thaw/rewind trace (where the
      card's async arm must install at least half its thaws from staging
      slots), the contiguous engine on a freeze/offload trace and a rewind
-     trace, and ``Engine.generate``; tokens and counters must agree;
+     trace, and ``Engine.generate``; tokens and counters must agree; the
+     paged engine with int8 and with fp8 pages on the thaw/rewind trace,
+     card async and sync, CPU sync and async: tokens and quant counters
+     equal, byte gauges equal call for call card vs CPU, stashed payloads
+     identical between the card's arms and within one quantization step
+     of the CPU's;
   5. main paths — llama3-8b at full published width and depth (bf16 random
      weights made on the card from a seed, once) serves 8 requests of 128
      new tokens through the paged engine and then through the contiguous
@@ -44,10 +55,16 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      serve; the arms' tokens must be identical and the async arm must
      block the host on fewer steps.  A short profiled serve on each async
      engine gives the device busy share, aten ops, kernels and
-     ``aten::sort`` calls a step.  ``Engine.generate`` then runs the
+     ``aten::sort`` calls a step.  The paged engine then serves the same
+     requests with int8 pages (``kv_quant="int8"``), async and
+     ``--no-async``: identical tokens, pages quantized, kernel 1 launched
+     every step, ``kv_device_bytes`` (the reference's model of packed
+     pages) below the unquantized serve's.  ``Engine.generate`` then runs the
      paper's Table-1 protocol (14-token prompt, 500 new tokens) with
-     freeze off and on, and ``launch/bench_async.py`` its smoke trace on
-     the card (sync vs async paged engine, tiny model);
+     freeze off and on, ``launch/bench_async.py`` its smoke trace on
+     the card (sync vs async paged engine, tiny model), and
+     ``launch/bench_quant.py`` its needle smoke (the four quant criteria
+     of ``tools/check_bench.py``);
   6. kernel timing at the main-path shapes (the paged kernel at the P + S
      layout of the async main path and at P): device time per call from CUDA
      graph replay over rotated input copies (read from HBM, as in the
@@ -56,7 +73,8 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      computes the same function; for the freeze update, which has none,
      the two-stage path it replaced (PyTorch ``lane_tau``, then the kernel
      with that tau), an empty kernel on its grid (the launch floor), and
-     its time at S = 8192 and 32768.
+     its time at S = 8192 and 32768; the paged kernel also at its
+     quantized layouts (int8, fp8), its bound counting the scales read.
 The line before last is the kernels JSON, the last line the ``ok`` JSON;
 longer reports go to ``chiprun_out/``.
 """
@@ -171,6 +189,8 @@ def phase_kernel_cases(torch, C, K, ref, report):
     report.write("dead_lane: zeros\n")
     for dtype in C.DTYPES:
         _staged_layout(torch, C, K, run, dtype, report)
+    for mode in ("int8", "fp8"):
+        _quantized_layout(torch, C, K, ref, mode, report)
     main = [n for n in worst if n.startswith("main-path")][0]
     log(f"kernel cases: {len(worst)} tolerance cases (each bit-identical "
         f"over two calls) + 3 bit-identity pairs + dead lane passed; worst "
@@ -208,6 +228,55 @@ def _staged_layout(torch, C, K, run, dtype, report):
         f"of {out_u.size} outputs")
     report.write(f"{staged.name}: bit-identical to {plain.name} with "
                  f"reserved_slots={S}\n")
+
+
+def _quantized_layout(torch, C, K, ref, mode, report):
+    """Kernel 1 at the async main path's layout with 13 of its 25 live
+    pages quantized in ``mode``, told ``reserved_slots=S`` as the engine
+    calls it: within bf16 tolerance of its plain version, within
+    ``QUANT_TOLS`` of the unquantized pages, bit-identical over two calls;
+    with no page flagged and unit scales, bit-identical to the call without
+    quant operands."""
+    q, unflagged, S = C.quantized_layout_pair(mode)
+
+    def call(fn, inputs, dtype=q.dtype):
+        args = C.call_args(C.to_torch(inputs, dtype, "cuda"))
+        out, rel = fn(*args, reserved_slots=S) \
+            if fn is K.paged_decode_attention_cuda else fn(*args)
+        torch.cuda.synchronize()
+        return out.float().cpu().numpy(), rel.cpu().numpy()
+
+    out_k, rel_k = call(K.paged_decode_attention_cuda, q.inputs)
+    out_2, rel_2 = call(K.paged_decode_attention_cuda, q.inputs)
+    np.testing.assert_array_equal(out_k, out_2, f"{q.name}: 2nd call")
+    np.testing.assert_array_equal(rel_k, rel_2, f"{q.name}: 2nd call")
+    out_p, rel_p = call(ref, q.inputs)
+    np.testing.assert_allclose(out_k, out_p, err_msg=q.name, **q.tols)
+    np.testing.assert_allclose(rel_k, rel_p, err_msg=q.name, **q.tols)
+    out_f, rel_f = call(ref, q.full, "float32")
+    np.testing.assert_allclose(out_k, out_f, err_msg=q.name,
+                               **C.QUANT_TOLS[mode])
+    np.testing.assert_allclose(rel_k, rel_f, err_msg=q.name,
+                               **C.QUANT_TOLS[mode])
+    plain = {k: a for k, a in unflagged.inputs.items()
+             if k not in ("page_quant", "kv_scales")}
+    out_u, rel_u = call(K.paged_decode_attention_cuda, unflagged.inputs)
+    out_n, rel_n = call(K.paged_decode_attention_cuda, plain)
+    np.testing.assert_array_equal(out_u, out_n, "unflagged vs none")
+    np.testing.assert_array_equal(rel_u, rel_n, "unflagged vs none")
+    err = float(max(np.abs(out_k - out_p).max(), np.abs(rel_k - rel_p).max()))
+    err_f = float(max(np.abs(out_k - out_f).max(),
+                      np.abs(rel_k - rel_f).max()))
+    n_flag = int((q.inputs["page_quant"] != 0).sum())
+    log(f"kernel 1 quantized layout {mode}: {n_flag} of 25 live pages "
+        f"flagged at P + S = {q.inputs['page_table'].shape[1]}, "
+        f"reserved_slots={S}: |kernel - plain| {err:.3e} (tolerance "
+        f"{q.tols['rtol']:g}), |kernel - unquantized pages| {err_f:.3e} "
+        f"(QUANT_TOLS {C.QUANT_TOLS[mode]['rtol']:g}), bit-identical over "
+        f"two calls; no page flagged == no quant operands, bit for bit")
+    report.write(f"{q.name}: max|kernel - plain| = {err:.3e}, max|kernel - "
+                 f"full precision| = {err_f:.3e}\n")
+    return err
 
 
 def phase_contiguous_kernel_cases(torch, CC, K2, K3, R, report):
@@ -659,6 +728,141 @@ def phase_contiguous_reference(torch, kernels, launcher, MD, engine_mod,
         f"{og.n_restores} restored")
 
 
+# card-vs-CPU traces with quantized pages: the recovery trace (stash, swap,
+# thaw, rewind) at f32, greedy, with a fixed prefill chunk split so the
+# async arm's later admissions chunk prompts as the sync arm does
+QUANT_TRACE = dict(
+    freeze=dict(page_size=8, window=8, quantile=0.6, k_soft=0.7,
+                entropy_abs_threshold=0.5, rewalk_tokens=6),
+    prompts=(48, 20), n_toks=(70, 50),
+    serving=dict(max_seq=256, n_lanes=2, max_active_pages=6,
+                 prefill_chunk=16, rewind_cooldown=12, burst_prefill=False))
+QUANT_ARMS = ARMS + (("CPU async", "cpu", True),)
+
+
+def _quant_run(torch, K, launcher, engine_mod, cfg_mod, cfg, params, prompts,
+               dev, is_async, mode):
+    """One quantized arm: the payload and scales of every fresh
+    quantization in order, and the device-savings and DMA byte gauges
+    after every engine call."""
+    from repro_torch.core import quant
+    sv = cfg_mod.ServingConfig(**QUANT_TRACE["serving"],
+                               async_pipeline=is_async, kv_quant=mode)
+    eng = engine_mod.PagedContinuousEngine(cfg, params, sv, device=dev)
+    reqs = [engine_mod.Request(u, p, n, engine_mod.SamplingParams.greedy())
+            for u, (p, n) in enumerate(zip(prompts, QUANT_TRACE["n_toks"]))]
+    payloads, gauges = [], []
+    orig_q, orig_step = quant.quantize_page, eng.step_once
+
+    def record_q(page, m, scales=None):
+        out = orig_q(page, m, scales)
+        payloads.append((out[0].copy(), out[1].copy()))
+        return out
+
+    def record_step():
+        out = orig_step()
+        gauges.append((eng.ctl.device_savings_bytes, eng.stats.d2h_bytes,
+                       eng.stats.h2d_bytes))
+        return out
+
+    before = K.paged_decode_attention_cuda.launches
+    quant.quantize_page, eng.step_once = record_q, record_step
+    try:
+        launcher.serve_fifo(eng, reqs)
+    finally:
+        quant.quantize_page = orig_q
+        eng.step_once = orig_step
+    ctl = eng.ctl
+    assert not ctl.store and not ctl.frozen_meta and not ctl.staged_keys
+    return dict(
+        tokens=[r.result for r in reqs], steps=eng.wall_step,
+        launched=K.paged_decode_attention_cuda.launches - before,
+        rewinds=[r.telemetry.rewinds for r in reqs],
+        counters=(ctl.n_quantized_pages, ctl.n_swap_out, ctl.n_swap_in,
+                  ctl.n_thaw),
+        remap=ctl.n_thaw_remap, payloads=payloads, gauges=gauges,
+        savings=max(g[0] for g in gauges))
+
+
+def _payload_gap(a, b, mode):
+    """Port payloads of two devices, in the same order: the count of bytes
+    that differ, checked to be at most one quantization step apart and
+    under 1% of all, and the largest relative gap of their scales, checked
+    to be under 1e-3.  The card's and the CPU's f32 K/V are not bitwise
+    equal: this model's attention scores reach ~4e3, so rounding in the
+    first layer's prefill attention grows through the second."""
+    from repro_torch.core import quant
+    assert len(a) == len(b), (len(a), len(b))
+    n_diff = n_all = 0
+    scale_gap = 0.0
+    for (pa, sa), (pb, sb) in zip(a, b):
+        va, vb = quant.payload_values(pa), quant.payload_values(pb)
+        step = 1.0 if mode == "int8" else \
+            np.maximum(np.abs(vb) * 2.0**-3, 2.0**-9)
+        assert (np.abs(va - vb) <= step).all(), "payloads a step apart"
+        n_diff += int((pa.view(np.uint8) != pb.view(np.uint8)).sum())
+        n_all += pa.size
+        scale_gap = max(scale_gap, float(np.max(np.abs(sa - sb) / sb)))
+    assert n_diff <= 0.01 * n_all and scale_gap <= 1e-3, (n_diff, scale_gap)
+    return n_diff, n_all, scale_gap
+
+
+def phase_quant_reference(torch, K, launcher, MD, engine_mod, cfg_mod):
+    """Quantized pages (int8, fp8) on the tiny f32 model, greedy, through
+    the paged engine on the card (kernel 1 with flagged pages) async and
+    sync and on the CPU (plain version) sync and async: tokens and quant,
+    swap and thaw counters equal in every arm; remap-only thaws equal in
+    the async arms; the device-savings and DMA byte gauges equal call for
+    call between card and CPU in each pipeline arm; the stashed payloads
+    and scales identical between the card's arms and within one
+    quantization step of the CPU's."""
+    cfg = launcher.launcher_config("llama3-8b", tiny=True)
+    cfg = dataclasses.replace(cfg, dtype="float32", freeze=dataclasses.replace(
+        cfg.freeze, **QUANT_TRACE["freeze"]))
+    params_cpu = MD.init_params(cfg, SEED, "cpu")
+    params = {"cpu": params_cpu, "cuda": _to_device(params_cpu, "cuda")}
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in QUANT_TRACE["prompts"]]
+    for mode in ("int8", "fp8"):
+        runs = {arm: _quant_run(torch, K, launcher, engine_mod, cfg_mod, cfg,
+                                params[dev], prompts, dev, is_async, mode)
+                for arm, dev, is_async in QUANT_ARMS}
+        ga, gs, cs, ca = (runs[a] for a, _, _ in QUANT_ARMS)
+        for arm, r in runs.items():
+            for u, (a, b) in enumerate(zip(r["tokens"], cs["tokens"])):
+                i = _first_divergence(a, b)
+                assert i is None, (f"quant {mode} request {u}: {arm} and CPU "
+                                   f"sync tokens diverge at {i}")
+            for key in ("rewinds", "counters"):
+                assert r[key] == cs[key], (mode, arm, key, r[key], cs[key])
+        assert ga["launched"] == ga["steps"] * cfg.num_layers
+        assert gs["launched"] == gs["steps"] * cfg.num_layers
+        assert ga["remap"] == ca["remap"] > 0, (ga["remap"], ca["remap"])
+        assert gs["gauges"] == cs["gauges"], (mode, "sync gauges")
+        assert ga["gauges"] == ca["gauges"], (mode, "async gauges")
+        n_q, _, _, thaws = cs["counters"]
+        assert n_q > 0 and thaws > 0 and sum(cs["rewinds"]) > 0, \
+            cs["counters"]
+        key = lambda p: (p[0].tobytes(), p[1].tobytes())
+        assert sorted(map(key, ga["payloads"])) == \
+            sorted(map(key, gs["payloads"])), (mode, "card async vs sync")
+        gap_s = _payload_gap(gs["payloads"], cs["payloads"], mode)
+        gap_a = _payload_gap(ga["payloads"], ca["payloads"], mode)
+        log(f"reference quant {mode}: tiny f32 greedy, 2 requests: card "
+            f"async == card sync == CPU sync == CPU async tokens, rewinds "
+            f"{cs['rewinds']} and counters (quantized pages {n_q}, swaps "
+            f"{cs['counters'][1]} out / {cs['counters'][2]} in, {thaws} "
+            f"thaws; remap-only {ga['remap']} on card and CPU async); "
+            f"device-savings and DMA byte gauges equal call for call card "
+            f"vs CPU (peak savings {cs['savings']} B, D2H "
+            f"{cs['gauges'][-1][1]} B, H2D {cs['gauges'][-1][2]} B sync); "
+            f"{len(cs['payloads'])} payloads: card async == card sync byte "
+            f"for byte; card vs CPU {gap_s[0]} (sync) and {gap_a[0]} (async) "
+            f"of {gap_s[1]} payload bytes one step apart, scales within "
+            f"{max(gap_s[2], gap_a[2]):.2e}")
+
+
 def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
@@ -789,14 +993,77 @@ def phase_main_path(torch, kernels, launcher, engine_mod, cfg_mod, params,
             f"K/V pushes; {sum(r.telemetry.rewinds for r in done)} rewinds")
         arms[label] = dict(tokens={r.uid: r.result for r in done},
                            blocked=engine.stats.host_blocked_fraction,
-                           launches=launches)
+                           launches=launches,
+                           kv_bytes=engine.kv_device_bytes)
         if is_async:
             _profile_serve(torch, launcher, engine_mod, cfg, engine,
                            card_line, "paged")
         del engine
         torch.cuda.empty_cache()
     _same_tokens(arms, "paged")
-    return arms[MAIN_ARMS[0][0]]["launches"]
+    return arms
+
+
+def phase_quant_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
+                          params, card_line, base):
+    """The paged path with int8 pages: PagedContinuousEngine at full width
+    on the main path's 8 requests, async (default) and --no-async.  Tokens
+    identical between the arms, pages quantized, per-lane active KV within
+    P x page, and the kv_device_bytes gauge (the reference's model of
+    packed pages) dipping below the unquantized arm's; the step medians and
+    the tokens equal to the unquantized serve's (same sampling seeds) are
+    printed, not asserted."""
+    cfg = _full_width_config(launcher)
+    arms = {}
+    for label, is_async in MAIN_ARMS:
+        sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4,
+                                   max_active_pages=8, prefill_chunk=256,
+                                   seed=SEED, async_pipeline=is_async,
+                                   kv_quant="int8")
+        engine = engine_mod.PagedContinuousEngine(cfg, params, sv,
+                                                  device="cuda")
+        floor = [engine.kv_device_bytes]
+        orig = engine.step_once
+
+        def tracked():
+            out = orig()
+            floor.append(min(floor[-1], engine.kv_device_bytes))
+            return out
+
+        engine.step_once = tracked
+        done, counts, timing, steps = _serve_main(torch, launcher, engine_mod,
+                                                  cfg, engine, kernels)
+        engine.step_once = orig
+        launches, ctl = counts["paged_decode_attention"], engine.ctl
+        assert launches == steps * cfg.num_layers, (launches, steps)
+        assert counts["freeze_decode_attention"] == 0 and \
+            counts["relevance_freeze_update"] == 0, counts
+        assert ctl.n_quantized_pages > 0, ctl.n_quantized_pages
+        peak_active = max(max(r.telemetry.active_kv) for r in done)
+        assert peak_active <= 8 * 64, peak_active
+        assert not ctl.store and not ctl.frozen_meta
+        unquantized = base[label]["kv_bytes"]
+        assert floor[-1] < unquantized, (floor[-1], unquantized)
+        same = sum(int(np.sum(r.result == base[label]["tokens"][r.uid]))
+                   for r in done)
+        total = sum(len(r.result) for r in done)
+        log(f"main path paged int8 {label} [{card_line}], no profiler: "
+            f"{steps} decode steps, {launches} kernel launches (= steps x "
+            f"32) with flagged pages; {timing}; {ctl.n_quantized_pages} "
+            f"pages quantized; kv_device_bytes floor {floor[-1]} vs "
+            f"{unquantized} unquantized (modeled packing; the card's pool "
+            f"stays bf16); peak per-lane active KV {peak_active:.0f} slots; "
+            f"swaps {ctl.n_swap_out} out / {ctl.n_swap_in} in / "
+            f"{ctl.n_thaw} thawed; {engine.n_boundary_ticks} boundary "
+            f"ticks, {engine.n_kv_pushes} K/V pushes; D2H "
+            f"{engine.stats.d2h_bytes} B, H2D {engine.stats.h2d_bytes} B "
+            f"(modeled); {same} of {total} tokens equal to the unquantized "
+            f"serve's (same sampling seeds)")
+        arms[label] = dict(tokens={r.uid: r.result for r in done},
+                           blocked=engine.stats.host_blocked_fraction)
+        del engine
+        torch.cuda.empty_cache()
+    _same_tokens(arms, "paged int8")
 
 
 def phase_contiguous_main_path(torch, kernels, launcher, engine_mod,
@@ -978,8 +1245,17 @@ def phase_launch_counts(torch, C, CC, K, K2, K3):
                 lambda: K2.freeze_decode_attention_cuda(*x2),
                 ("freeze_attn_kernel", "freeze_combine_kernel"))}
     counts, other = _launches_per_call(torch, runs, calls)
+    # kernel 1 at the int8-quantized P + S layout, in a profiler window of
+    # its own
+    # (its kernels have the names of the run above)
+    q, _, S = C.quantized_layout_pair("int8")
+    xq = C.call_args(C.to_torch(q.inputs, q.dtype, "cuda"))
+    nq, other_q = _launches_per_call(torch, {"quantized": (
+        lambda: K.paged_decode_attention_cuda(*xq, reserved_slots=S),
+        ("paged_attn_kernel", "paged_combine_kernel"))}, calls)
+    counts["paged_decode_attention[int8 pages]"] = nq["quantized"]
     for name, n in counts.items():
-        assert 0 < n <= 2, (name, n, other)
+        assert 0 < n <= 2, (name, n, other, other_q)
     # the decode step's call: in place, no mask, the lane counts added
     fcase = [c for c in CC.freeze_cases() if c.name.startswith("main-path")][0]
     fcfg = FreezeConfig(**fcase.cfg)
@@ -999,18 +1275,22 @@ def phase_launch_counts(torch, C, CC, K, K2, K3):
     return counts
 
 
-def phase_timing(torch, C, K, ref, card_line, case, reserved=0):
-    """Kernel, plain version and SDPA yardstick at the serving shape: the
-    pages of ``case``, the last ``reserved`` of its slots being the async
-    engine's staging slots (unmapped)."""
+def phase_timing(torch, C, K, ref, card_line, case, reserved=0,
+                 library=True):
+    """Kernel, plain version and SDPA yardstick (unless ``library`` is
+    False) at the serving shape: the pages of ``case``, the last
+    ``reserved`` of its slots being the async engine's staging slots
+    (unmapped); a quantized case brings its flags and scales."""
     import torch.nn.functional as F
     x = C.to_torch(case.inputs, case.dtype, "cuda")
     B, P, page, KVH, hd = x["k_pages"].shape
     H = x["q"].shape[1]
-    # the engine passes every table: no quant flag set, unit scales
-    x["page_quant"] = torch.zeros((B, P), dtype=torch.int32, device="cuda")
-    x["kv_scales"] = torch.ones((B, P, 2, KVH), dtype=torch.float32,
-                                device="cuda")
+    if "page_quant" not in x:
+        # the engine passes every table: no quant flag set, unit scales
+        x["page_quant"] = torch.zeros((B, P), dtype=torch.int32,
+                                      device="cuda")
+        x["kv_scales"] = torch.ones((B, P, 2, KVH), dtype=torch.float32,
+                                    device="cuda")
     # rotate K/V copies so each launch reads them from HBM, as the decode
     # step does (a layer's pool is evicted by the rest of the step)
     n_copies = 12
@@ -1036,23 +1316,42 @@ def phase_timing(torch, C, K, ref, card_line, case, reserved=0):
     plain_ms = _graph_ms(torch, plain, n_copies)
     # bound: bytes this call must move — q; K and V of the valid slots of
     # live pages; page table and visibility of every page; slot mask and
-    # quant flag of live pages (no page is flagged here, so no scale is
-    # read); out and relevance — over HBM bandwidth; ops: 4 * H * hd per
-    # valid slot of a live page at the bf16 rate (K and V are bf16)
+    # quant flag of live pages, and the K and V scales of the flagged live
+    # ones; out and relevance — over HBM bandwidth; ops: 4 * H * hd per
+    # valid slot of a live page at the bf16 rate (K and V are bf16, in a
+    # quantized page too: the pool keeps its dtype)
     pt, vis, sm = (case.inputs[k] for k in ("page_table", "page_visible",
                                             "slot_mask"))
     live = (pt >= 0) & vis & sm.any(-1)
     n_live = int(live.sum())
+    n_flagged = int((live & (case.inputs.get("page_quant", 0) != 0)).sum())
     live_tokens = int(sm[live].sum())
     elem = 2                                               # bf16
     nbytes = (B * H * hd * elem                            # q
               + live_tokens * KVH * hd * elem * 2          # K, V slots
               + B * P * (4 + 1)                            # table, visible
               + n_live * (page + 4)                        # mask, quant flag
+              + n_flagged * 2 * KVH * 4                    # K, V scales
               + B * H * hd * elem + B * P * 4)             # out, relevance
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * 4 * H * hd * live_tokens / BF16_FLOPS_PER_S
     bound_ms = max(bytes_ms, ops_ms)
+    ppb = K.pages_per_block(P - reserved)
+    shape = (f"{case.name} [{card_line}] at B={B} P={P} ({reserved} of them "
+             f"staging slots) page={page} H={H} KVH={KVH} hd={hd} bf16, "
+             f"{-(-P // ppb) * KVH * B} blocks of {ppb} page(s), {n_live} "
+             f"live pages ({n_flagged} quantized), {live_tokens} valid slots "
+             f"in them, device time per call from CUDA-graph replay: kernel "
+             f"{ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {nbytes}: "
+             f"{bytes_ms:.4f} ms; ops {ops_ms:.4f} ms) = "
+             f"{100 * bound_ms / ms:.1f}% of the published peak, plain "
+             f"{plain_ms:.4f} ms")
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    if not library:
+        log(f"timing {shape}; eager kernel call with host dispatch "
+            f"{eager_ms:.4f} ms")
+        del kv
+        return ms, plain_ms, bound_ms, bound_by, None
     # library yardstick: SDPA over each lane's gathered live tokens (padded
     # to the longest lane, masked), GQA heads expanded beforehand, one
     # gathered copy per rotated K/V copy so it too reads from HBM
@@ -1081,20 +1380,10 @@ def phase_timing(torch, C, K, ref, card_line, case, reserved=0):
     lib_l2_ms = _graph_ms(torch, lambda i: F.scaled_dot_product_attention(
         qq, *exp[0], attn_mask=mask), n_copies)
     del exp, kv
-    ppb = K.pages_per_block(P - reserved)
-    log(f"timing {case.name} [{card_line}] at B={B} P={P} ({reserved} of "
-        f"them staging slots) page={page} H={H} KVH={KVH} hd={hd} bf16, "
-        f"{-(-P // ppb) * KVH * B} blocks of {ppb} page(s), "
-        f"{n_live} live pages, {live_tokens} valid slots in "
-        f"them, device time per call "
-        f"from CUDA-graph replay: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"(bytes {nbytes}: {bytes_ms:.4f} ms; ops {ops_ms:.4f} ms) = "
-        f"{100 * bound_ms / ms:.1f}% of the published peak, plain "
-        f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms over {n_copies} rotated "
+    log(f"timing {shape}, SDPA {lib_ms:.4f} ms over {n_copies} rotated "
         f"copies (one L2-resident copy: {lib_l2_ms:.4f} ms); eager kernel "
         f"call with host dispatch {eager_ms:.4f} ms")
-    return ms, plain_ms, bound_ms, "bytes" if bytes_ms >= ops_ms else \
-        "operations", lib_ms
+    return ms, plain_ms, bound_ms, bound_by, lib_ms
 
 
 FREEZE_ROTATION = 400    # copies of the freeze inputs: 55.7 MB > the L2
@@ -1248,6 +1537,32 @@ def phase_bench_async(torch, kernels, card_line):
         f"{res['thaw_remap_fraction']:.3f}; {launched} kernel launches")
 
 
+def phase_bench_quant(torch, kernels, card_line):
+    """``launch/bench_quant.py`` at smoke scale on the card: the needle
+    trace with and without int8 pages (tiny model, bf16), held to
+    ``tools/check_bench.py``'s quant criteria by its own check."""
+    from repro_torch.launch import bench_quant
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    res = bench_quant.run_quant_comparison(smoke=True, device="cuda",
+                                           seed=SEED)
+    dt = time.perf_counter() - t0
+    launched = _read_counts(kernels)["paged_decode_attention"]
+    for line in bench_quant.summary_lines(res):
+        log(f"  {line}")
+    (OUT_DIR / "bench_quant.json").write_text(json.dumps(
+        dict(res, card=card_line), indent=1))
+    bench_quant.check(res)
+    assert launched > 0, launched
+    q = res["quant"]
+    log(f"bench_quant smoke [{card_line}] on the card in {dt:.1f}s: "
+        f"{q['quantized_pages']} pages quantized, retrieval "
+        f"{q['retrieval_acc']} (unquantized {q['baseline_retrieval_acc']}), "
+        f"query-window KV {q['kv_device_bytes_query_floor']}, DMA "
+        f"{q['dma_bytes']} (modeled packed bytes); {launched} kernel "
+        f"launches")
+
+
 def main() -> int:
     name, count, card_line = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
@@ -1278,20 +1593,25 @@ def main() -> int:
     phase_reference(K, launcher, MD, engine_mod, cfg_mod)
     phase_contiguous_reference(torch, kernels, launcher, MD, engine_mod,
                                cfg_mod)
+    phase_quant_reference(torch, K, launcher, MD, engine_mod, cfg_mod)
     cfg = _full_width_config(launcher)
     t0 = time.perf_counter()
     params = MD.init_params(cfg, SEED, "cuda")
     torch.cuda.synchronize()
     log(f"main paths: llama3-8b {MD.param_count(params) / 1e9:.2f}B params "
         f"bf16 made on the card in {time.perf_counter() - t0:.1f}s")
-    launches = phase_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
-                               params, card_line)
+    paged = phase_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
+                            params, card_line)
+    launches = paged[MAIN_ARMS[0][0]]["launches"]
+    phase_quant_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
+                          params, card_line, paged)
     counts = phase_contiguous_main_path(torch, kernels, launcher, engine_mod,
                                         cfg_mod, params, card_line)
     phase_table1(torch, kernels, launcher, engine_mod, params, card_line)
     del params
     torch.cuda.empty_cache()
     phase_bench_async(torch, kernels, card_line)
+    phase_bench_quant(torch, kernels, card_line)
     # kernel 1 at the main path's staged layout (P + S, S reserved; the
     # kernels line) and at the plain P layout of the --no-async arm
     plain_case, staged_case, S = C.staged_layout_pair()
@@ -1299,13 +1619,21 @@ def main() -> int:
         torch, C, K, R.paged_decode_attention_ref, card_line, staged_case, S)
     phase_timing(torch, C, K, R.paged_decode_attention_ref, card_line,
                  plain_case)
+    # kernel 1 at the staged layout with 13 of its 25 live pages quantized
+    quant_t = {}
+    for mode in ("int8", "fp8"):
+        q, _, S = C.quantized_layout_pair(mode)
+        quant_t[mode] = phase_timing(torch, C, K, R.paged_decode_attention_ref,
+                                     card_line, q, S, library=False)
     k2, k3 = phase_contiguous_timing(torch, CC, K2, K3, R, card_line)
     rows = [
         dict(name="paged_decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_decode_attn.cu",
              replaces="src/repro/kernels/paged_decode_attn.py:117",
              launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms),
+             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+             **{f"{k}_{mode}_pages": v for mode, t in quant_t.items()
+                for k, v in zip(("ms", "plain_ms", "bound_ms"), t)}),
         dict(name="freeze_decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/freeze_decode_attn.cu",
              replaces="src/repro/kernels/freeze_decode_attn.py:93",

@@ -171,7 +171,10 @@ class PagedController:
     bf16 pool's K/V pages are the ``int16`` view of their bytes; under
     ``kv_quant="none"`` this class only copies, zero-fills and pads whole
     pages, which the integer view does bit-exactly.  The quantized paths
-    compute on values and therefore need a float pool (f32 here).
+    compute on values, so under a quant mode the engine hands over a bf16
+    pool's K/V as their f32 values (``repro_torch.device.host_values``)
+    and sets ``pool_dtype``: a value the controller computes is rounded to
+    it where the reference's bf16 pool would round it on assignment.
     """
     cfg: ModelConfig
     batch: int
@@ -261,6 +264,9 @@ class PagedController:
     resident_quant: Dict[int, int] = dataclasses.field(default_factory=dict)
     n_quantized_pages: int = 0   # pages quantized fresh (in-place pass,
     #                              swap-out narrowing, admission stash)
+    # the device pool's dtype when the K/V arrays handed over hold its
+    # values at f32 (None: the arrays are the pool's own type)
+    pool_dtype: Optional[torch.dtype] = None
 
     # ---- single entry/exit points for host-stash bytes ---------------- #
     def _store_put(self, key: Tuple[int, int, int],
@@ -335,6 +341,14 @@ class PagedController:
         self.n_quantized_pages += 1
         return (pk, pv), (sk, sv)
 
+    def _pool_values(self, x: np.ndarray) -> np.ndarray:
+        """f32 values as a pool of ``pool_dtype`` keeps them (rounded to
+        nearest even, as the reference's bf16 pool rounds on assignment)."""
+        if self.pool_dtype is None or self.pool_dtype == torch.float32:
+            return x
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+            self.pool_dtype).float().numpy()
+
     def _clear_quant_slot(self, pool: dict, l: int, b: int, p: int) -> None:
         if "page_quant" in pool:
             pool["page_quant"][l, b, p] = 0
@@ -362,8 +376,10 @@ class PagedController:
             pool["kv_scales"][l, b, p, 0] = qm[0]
             pool["kv_scales"][l, b, p, 1] = qm[1]
         else:
-            pool["k"][l, b, p] = quant.dequantize_page(kk, qm[0])
-            pool["v"][l, b, p] = quant.dequantize_page(vv, qm[1])
+            pool["k"][l, b, p] = self._pool_values(
+                quant.dequantize_page(kk, qm[0]))
+            pool["v"][l, b, p] = self._pool_values(
+                quant.dequantize_page(vv, qm[1]))
 
     def _quantize_frozen_resident(self, pool: dict, fstate: dict,
                                   lane_set) -> None:
@@ -391,8 +407,9 @@ class PagedController:
                                                   mode)
                     pv, svl = quant.quantize_page(np.asarray(v[l, b, p]),
                                                   mode)
-                    k[l, b, p] = pk
-                    v[l, b, p] = pv
+                    # fp8 payloads are held as raw bits: write their values
+                    k[l, b, p] = quant.payload_values(pk)
+                    v[l, b, p] = quant.payload_values(pv)
                     pq[l, b, p] = mode
                     sc[l, b, p, 0] = skl
                     sc[l, b, p, 1] = svl
@@ -414,11 +431,18 @@ class PagedController:
         pt, k = pool["page_table"], pool["k"]
         n = int(((pq[:, b] != 0) & (pt[:, b] >= 0)).sum())
         page_elems = int(np.prod(k.shape[3:]))
-        saved = n * page_elems * (np.dtype(k.dtype).itemsize - 1) * 2
+        saved = n * page_elems * (self.pool_itemsize(k) - 1) * 2
         if saved:
             self.resident_quant[lane_id] = saved
         else:
             self.resident_quant.pop(lane_id, None)
+
+    def pool_itemsize(self, k: np.ndarray) -> int:
+        """Bytes an element of the device pool takes (``k`` is the host
+        K array handed over)."""
+        if self.pool_dtype is None:
+            return np.dtype(k.dtype).itemsize
+        return torch.empty(0, dtype=self.pool_dtype).element_size()
 
     @property
     def stash_pressure(self) -> float:
@@ -798,10 +822,10 @@ class PagedController:
         if pq is None or not pq[l, b, p]:
             return
         sc = pool["kv_scales"]
-        pool["k"][l, b, p] = quant.dequantize_page(
-            np.asarray(pool["k"][l, b, p]), np.asarray(sc[l, b, p, 0]))
-        pool["v"][l, b, p] = quant.dequantize_page(
-            np.asarray(pool["v"][l, b, p]), np.asarray(sc[l, b, p, 1]))
+        pool["k"][l, b, p] = self._pool_values(quant.dequantize_page(
+            np.asarray(pool["k"][l, b, p]), np.asarray(sc[l, b, p, 0])))
+        pool["v"][l, b, p] = self._pool_values(quant.dequantize_page(
+            np.asarray(pool["v"][l, b, p]), np.asarray(sc[l, b, p, 1])))
         self._clear_quant_slot(pool, l, b, p)
         self.kv_dirty = True
 

@@ -8,12 +8,11 @@ held on the host as their raw ``uint8`` bits because numpy has no fp8 type;
 the cast goes through ``torch.float8_e4m3fn`` (round to nearest even, as
 ``ml_dtypes`` does), with the reference's NaN for what e4m3 cannot hold.
 Device pools keep one dtype: a quantized page holds its payload *values*
-widened into the pool dtype, and the kernel multiplies by the scales where
-the page's flag is set.
-
-The paged engine of this slice serves ``kv_quant="none"`` only; the
-controller keeps its quantized code paths whole, and the kernel's dequant
-is held against these payloads in the tests.
+widened into the pool dtype (exact in bf16 and f32: int8 payloads are
+integers of magnitude <= 127, e4m3 values have 3 mantissa bits), and the
+kernel multiplies by the scales where the page's flag is set.  The paged
+engine serves ``kv_quant`` "int8" and "fp8"; the contiguous engine does not
+quantize.
 """
 from __future__ import annotations
 
@@ -26,6 +25,15 @@ import torch
 QUANT_NONE, QUANT_INT8, QUANT_FP8 = 0, 1, 2
 MODES = {"none": QUANT_NONE, "int8": QUANT_INT8, "fp8": QUANT_FP8}
 _QMAX = {QUANT_INT8: 127.0, QUANT_FP8: 448.0}
+
+
+def resolve_mode(kv_quant: str) -> int:
+    """Map a ``--kv-quant`` string to its flag value.  fp8 needs nothing
+    beyond torch here (``torch.float8_e4m3fn``), so every mode is served."""
+    if kv_quant not in MODES:
+        raise ValueError(f"kv_quant must be one of {sorted(MODES)}, "
+                         f"got {kv_quant!r}")
+    return MODES[kv_quant]
 
 
 def _fp8_bits(x: np.ndarray) -> np.ndarray:

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -32,11 +33,22 @@ def host_view(t: torch.Tensor):
     return t.cpu().numpy()
 
 
+def host_values(a: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """The f32 values of ``a``, the :func:`host_view` of a ``dtype`` tensor:
+    a bf16 tensor's int16 bits are widened exactly (bf16 is the top half of
+    an f32); an f32 array comes back as it is."""
+    if dtype == torch.bfloat16:
+        return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return a
+
+
 def from_host(a, dtype: torch.dtype, device: Optional[torch.device] = None
               ) -> torch.Tensor:
-    """Inverse of :func:`host_view`: numpy array -> tensor of ``dtype``."""
+    """Inverse of :func:`host_view`: numpy array -> tensor of ``dtype``.
+    For bf16, ``a`` is either its int16 bits or f32 values, which are
+    rounded to nearest even."""
     t = torch.from_numpy(a)
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and t.dtype == torch.int16:
         t = t.view(torch.bfloat16)
     elif t.dtype != dtype:
         t = t.to(dtype)

@@ -320,6 +320,39 @@ def staged_layout_pair(dtype: str = "bfloat16", S: int = STAGING_SLOTS):
     return plain, staged, S
 
 
+def quantized_layout_pair(mode: str, dtype: str = "bfloat16"):
+    """The async main path's P + S layout with every other live page
+    quantized in ``mode`` (13 of its 25 live pages), as the engine leaves a
+    pool: payload values in the pool, the mode in ``page_quant``, per-page
+    per-kv-head scales.  ``full`` holds the same pages unquantized (rounded
+    to ``dtype`` first) for the lossy-envelope check.  Returns (quantized
+    case, the same pages with no flag set and unit scales, S)."""
+    _, staged, S = staged_layout_pair(dtype)
+    x = {k: round_to(a, dtype) if k in FLOAT_INPUTS else a
+         for k, a in staged.inputs.items()}
+    pt, vis, sm = x["page_table"], x["page_visible"], x["slot_mask"]
+    live = (pt >= 0) & vis & sm.any(-1)
+    flags = np.zeros(live.shape, bool)
+    flags[tuple(np.argwhere(live)[::2].T)] = True
+    kq, ksc = quantize_pool(x["k_pages"], flags, mode)
+    vq, vsc = quantize_pool(x["v_pages"], flags, mode)
+    B, P = pt.shape
+    KVH = x["k_pages"].shape[3]
+    shape = "x".join(map(str, x["k_pages"].shape[:2]))
+    quantized = Case(f"main-path-staged-{mode}-{shape}-{dtype}", dtype,
+                     dict(x, k_pages=kq, v_pages=vq,
+                          page_quant=flags.astype(np.int32)
+                          * quant.MODES[mode],
+                          kv_scales=np.stack([ksc, vsc], axis=2)),
+                     zero_rel_pages=staged.zero_rel_pages, mode=mode,
+                     full=x)
+    unflagged = Case(f"main-path-staged-unflagged-{shape}-{dtype}", dtype,
+                     dict(x, page_quant=np.zeros((B, P), np.int32),
+                          kv_scales=np.ones((B, P, 2, KVH), np.float32)),
+                     zero_rel_pages=staged.zero_rel_pages)
+    return quantized, unflagged, S
+
+
 def dead_lane_inputs():
     """Lane 0 has no live page (unmapped, invisible or empty-masked);
     lane 1 is live.  Lane 0 must output zeros and relevance 0."""

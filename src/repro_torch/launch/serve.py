@@ -16,11 +16,17 @@ engines, on the card unless ``--device cpu`` is given:
         --max-seq 2048 --prefill-chunk 256
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged \
         --device cpu --no-async
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged \
+        --device cpu --kv-quant int8
 
 Both continuous engines run the async DMA pipeline by default (the
 per-step fetch is consumed one call later; on ``--paged`` likely thaws are
 staged into spare device slots); ``--no-async`` is the synchronous
-baseline with the same decisions and tokens.
+baseline with the same decisions and tokens.  ``--kv-quant int8|fp8``
+(``--paged`` only) quantizes frozen and stashed pages to a 1-byte payload
+with per-page, per-kv-head scales, dequantized by the attention kernel; the
+device pool keeps its dtype, so the ``kv-quant`` line's savings and the
+dma byte gauges are the reference's model of packed pages.
 
 The freeze settings match ``repro.launch.serve``: ``--quantile-tau q > 0``
 switches to the adaptive quantile threshold with window 16, k_soft 1.0 and
@@ -108,6 +114,11 @@ def summary_lines(engine: LaneEngine, done: List[Request],
         if ctl.n_thaw:
             lines.append(f"thaw installs: {ctl.n_thaw_remap} remap-only "
                          f"(staged) / {ctl.n_thaw_upload} uploaded")
+        if engine.kv_quant != "none":
+            lines.append(f"kv-quant({engine.kv_quant}): "
+                         f"{ctl.n_quantized_pages} pages quantized  "
+                         f"packed device savings now "
+                         f"{ctl.device_savings_bytes} bytes")
     elif engine.offloader is not None:
         off = engine.offloader
         lines.append(f"host offload: {off.n_offloads} pages out / "
@@ -168,11 +179,22 @@ def main(argv=None):
                          "device slots (--no-async: block on every step's "
                          "fetch, the synchronous baseline with the same "
                          "decisions and tokens)")
+    ap.add_argument("--kv-quant", default="none",
+                    choices=("none", "int8", "fp8"),
+                    help="lossy per-page quantization of frozen/stashed KV "
+                         "pages on --paged: the device pool's frozen pages "
+                         "and the host stash hold a 1-byte payload with "
+                         "per-page per-kv-head scales, dequantized in the "
+                         "attention kernel; 'none' is the unquantized "
+                         "engine")
     ap.add_argument("--device", default="cuda",
                     help="torch device ('cuda' or 'cpu')")
     args = ap.parse_args(argv)
     if args.static and args.paged:
         ap.error("--static and --paged are two different engines")
+    if args.kv_quant != "none" and not args.paged:
+        ap.error("--kv-quant quantizes the paged engine's pages: it needs "
+                 "--paged")
 
     device = resolve_device(args.device)
     cfg = launcher_config(args.arch, args.tiny, args.quantile_tau,
@@ -203,7 +225,8 @@ def main(argv=None):
                        enable_freeze=not args.no_freeze,
                        prefill_chunk=args.prefill_chunk,
                        max_active_pages=args.pages if args.paged else None,
-                       seed=args.seed, async_pipeline=args.async_pipeline)
+                       seed=args.seed, async_pipeline=args.async_pipeline,
+                       kv_quant=args.kv_quant)
     engine = (PagedContinuousEngine if args.paged else ContinuousEngine)(
         cfg, params, sv, device=device)
     done, seconds = serve_fifo(engine, reqs)

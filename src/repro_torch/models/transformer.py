@@ -459,8 +459,12 @@ def lm_decode_step_paged(
     exists = new_state.page_table >= 0                   # (L, B, P)
     frozen = new_state.freeze.frozen & exists
     visible = new_state.slot_mask & ~new_state.freeze.frozen[..., None]
-    # per-lane counts, summed over layers (host divides by L_attn)
-    info["n_frozen_pages_lane"] = torch.sum(frozen, dim=(0, 2))
-    info["n_active_pages_lane"] = torch.sum(exists & ~frozen, dim=(0, 2))
-    info["n_active_slots_lane"] = torch.sum(visible, dim=(0, 2, 3))
+    # per-lane counts, summed over layers (host divides by L_attn); int32
+    # as the reference's, so the fetched bytes match too
+    i32 = torch.int32
+    info["n_frozen_pages_lane"] = torch.sum(frozen, dim=(0, 2), dtype=i32)
+    info["n_active_pages_lane"] = torch.sum(exists & ~frozen, dim=(0, 2),
+                                            dtype=i32)
+    info["n_active_slots_lane"] = torch.sum(visible, dim=(0, 2, 3),
+                                            dtype=i32)
     return logits, new_state, info

@@ -12,9 +12,10 @@ paged engine, ``max_active_pages`` by the contiguous one, which leaves it
 None).  The port has no legacy keyword surface.  The defaults are the
 reference's: the async DMA pipeline (``async_pipeline=True``) with
 speculative thaw staging following it (``speculative_thaw=None``) into
-``speculative_slots`` staging slots a lane on the paged engine.  Options
-the port does not serve yet raise at construction: chaos injection and
-quantized pages.
+``speculative_slots`` staging slots a lane on the paged engine.
+``kv_quant`` ("none", "int8" or "fp8") is validated here; the paged engine
+serves every mode and the contiguous one only "none".  Chaos injection is
+not ported and raises at construction.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import dataclasses
 from typing import Any, Optional
 
 from repro_torch.configs.base import FreezeConfig
+from repro_torch.core import quant
 
 
 @dataclasses.dataclass
@@ -60,10 +62,7 @@ class ServingConfig:
     def __post_init__(self):
         if self.chaos is not None:
             raise NotImplementedError("chaos injection is not ported yet")
-        if self.kv_quant != "none":
-            raise NotImplementedError(
-                f"kv_quant={self.kv_quant!r}: the port's engine serves "
-                f"unquantized pages only so far")
+        quant.resolve_mode(self.kv_quant)
 
     def replace(self, **kw) -> "ServingConfig":
         return dataclasses.replace(self, **kw)

@@ -39,10 +39,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FreezeConfig, ModelConfig
+from repro_torch.core import quant
 from repro_torch.core.cache import HostOffloadController, KVCache
 from repro_torch.core.paging import PagedController
 from repro_torch.core.recovery import WR, thaw_priority, thaw_urgency
-from repro_torch.device import from_host, host_view, resolve_device
+from repro_torch.device import (from_host, host_values, host_view,
+                                resolve_device)
 from repro_torch.models import model as MD
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.dma import FetchRing, HostStaging, TransferStats
@@ -459,6 +461,11 @@ class ContinuousEngine(_LaneEngineBase):
                  device=None):
         super().__init__(cfg, params, serving, device)
         sv = serving
+        if sv.kv_quant != "none":
+            raise NotImplementedError(
+                f"kv_quant={sv.kv_quant!r}: the contiguous engine's "
+                f"quantized host offload is not ported; the paged engine "
+                f"serves quantized pages")
         self.max_rewinds = sv.max_rewinds
         self.rewind_cooldown = sv.rewind_cooldown
         # kept for construction parity with the reference: offload timing
@@ -712,6 +719,11 @@ class PagedContinuousEngine(_LaneEngineBase):
     async arm is token-identical to the sync one.  On a card the uploads
     run from pinned buffers on a side stream, and the compute stream waits
     for them (on the device) before anything else touches the pool's K/V.
+
+    With ``kv_quant`` "int8" or "fp8" frozen and stashed pages hold a
+    1-byte payload with per-page, per-kv-head scales (``core/quant.py``);
+    the pool keeps its dtype, holding the payload's values, and the
+    attention kernel dequantizes flagged pages.
     """
 
     def __init__(self, cfg: ModelConfig, params, serving: ServingConfig,
@@ -724,6 +736,7 @@ class PagedContinuousEngine(_LaneEngineBase):
             raise ValueError("pool needs tail + swap headroom (>= 3 pages)")
         if sv.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        self.kv_quant = sv.kv_quant
         self.P = sv.max_active_pages
         self.page = self.fcfg.page_size
         self.prefill_chunk = sv.prefill_chunk
@@ -749,6 +762,13 @@ class PagedContinuousEngine(_LaneEngineBase):
                 "paged continuous batching requires an attention-only stack")
         self.ctl = PagedController(cfg=cfg, batch=self.n_lanes,
                                    max_active_pages=self.P)
+        self.ctl.kv_quant = sv.kv_quant
+        # under a quant mode the controller computes on K/V values: a bf16
+        # pool's K/V reach it as f32 values and come back rounded to bf16
+        # (exact for every payload and every value read from the pool)
+        self._kv_values = sv.kv_quant != "none"
+        if self._kv_values:
+            self.ctl.pool_dtype = self.state.k.dtype
         self.tail_slot = np.zeros((self.L_attn, self.n_lanes), np.int32)
         self.prefills: Dict[int, _PendingPrefill] = {}
         self._urgency = np.zeros(self.n_lanes, np.float32)  # thaw trend/lane
@@ -763,7 +783,9 @@ class PagedContinuousEngine(_LaneEngineBase):
     @property
     def kv_device_bytes(self) -> int:
         """Live device KV footprint — O(n_lanes * P_total * page),
-        independent of context length."""
+        independent of context length.  Quantized resident pages count at
+        1 byte an element, the reference's model of a packed pool: the
+        card's pool keeps one dtype, so its physical bytes do not drop."""
         return (self.state.k.nbytes + self.state.v.nbytes
                 - self.ctl.device_savings_bytes)
 
@@ -779,7 +801,11 @@ class PagedContinuousEngine(_LaneEngineBase):
     # Only the boundary lanes' pool slices cross to the host, once per
     # tick, into reused staging buffers; the push carries K/V only when the
     # controller wrote some (``kv_dirty``).  bf16 pools travel as int16
-    # views of their bytes (``repro_torch.device.host_view``).
+    # views of their bytes (``repro_torch.device.host_view``); under a
+    # quant mode the pulled K/V are widened to f32 values for the
+    # controller and pushed back as bf16.  The byte gauges count the pool
+    # dtype's bytes less ``_quant_packing_savings``: the reference's model
+    # of quantized pages crossing packed, which the card does not do.
     _POOL_FIELDS = ("k", "v", "page_table", "slot_mask",
                     "page_quant", "kv_scales")
     _FZ_FIELDS = ("c", "d", "frozen", "frozen_at")
@@ -789,6 +815,15 @@ class PagedContinuousEngine(_LaneEngineBase):
     def _state_field(self, f: str) -> torch.Tensor:
         st = self.state
         return getattr(st, f) if hasattr(st, f) else getattr(st.freeze, f)
+
+    def _quant_packing_savings(self, pool: dict) -> int:
+        """Bytes of this pool slice that quantized mapped pages would not
+        move at 1 byte an element (K and V) — the reference's model of a
+        packed transfer, subtracted from the byte gauges."""
+        pq, k = pool["page_quant"], pool["k"]
+        n = int(((pq != 0) & (pool["page_table"] >= 0)).sum())
+        page_elems = int(np.prod(k.shape[3:]))
+        return n * page_elems * (self.ctl.pool_itemsize(k) - 1) * 2
 
     def _pull_lanes(self, lanes: List[int]) -> Tuple[dict, dict]:
         m = len(lanes)
@@ -800,8 +835,13 @@ class PagedContinuousEngine(_LaneEngineBase):
             lane_slice = self._state_field(name).index_select(1, idx)
             out[name] = self.staging.pull(f"pull_{name}_{m}", lane_slice)
         dt = time.perf_counter() - t0
-        self.stats.note_blocking(sum(a.nbytes for a in out.values()),
+        self.stats.note_blocking(sum(a.nbytes for a in out.values())
+                                 - self._quant_packing_savings(out),
                                  d2h=True, seconds=dt)
+        if self._kv_values:
+            kdt = self.ctl.pool_dtype
+            out["k"] = host_values(out["k"], kdt)
+            out["v"] = host_values(out["v"], kdt)
         return ({f: out[f] for f in self._POOL_FIELDS},
                 {f: out[f] for f in self._FZ_FIELDS})
 
@@ -820,8 +860,9 @@ class PagedContinuousEngine(_LaneEngineBase):
             src = pool[f] if f in pool else fstate[f]
             dst = self._state_field(f)
             dst.index_copy_(1, idx, from_host(src, dst.dtype, self.device))
-            nbytes += src.nbytes
+            nbytes += src.size * dst.element_size()
         if kv:
+            nbytes -= self._quant_packing_savings(pool)
             self.stats.note_blocking(nbytes, d2h=False)
         else:
             self.stats.note_async(nbytes, d2h=False)
@@ -915,9 +956,13 @@ class PagedContinuousEngine(_LaneEngineBase):
         # ladder, which decode steps during the admission advanced on
         # garbage logits
         self.state = MD.reset_paged_lane(self.cfg, self.state, lane)
-        # (L, sp, KVH, hd) host repack, once per admission
+        # (L, sp, KVH, hd) host repack, once per admission; under a quant
+        # mode the controller quantizes the overflow pages' values
         ck = host_view(pp.scratch.cache_k[:, 0])
         cv = host_view(pp.scratch.cache_v[:, 0])
+        if self._kv_values:
+            ck = host_values(ck, self.ctl.pool_dtype)
+            cv = host_values(cv, self.ctl.pool_dtype)
         n_pages = -(-sp // page)
         pad = n_pages * page - sp
         if pad:
@@ -1203,6 +1248,14 @@ class PagedContinuousEngine(_LaneEngineBase):
         self.staging.fence(v_name, done)
         self._uploads.append(done)
 
+    def _stage_row(self, page: np.ndarray) -> np.ndarray:
+        """A store page as the staging buffer holds it (the pool dtype's
+        host view): a 1-byte quantized payload becomes its values."""
+        if not self._kv_values:
+            return page
+        return host_view(from_host(quant.payload_values(page),
+                                   self.state.k.dtype))
+
     def _maybe_prefetch(self, decode_lanes: List[int]) -> None:
         """Stage likely-thaw pages for lanes with a thaw pending or an
         urgency at WR or above, most urgent first: at most ``S_stage``
@@ -1258,9 +1311,12 @@ class PagedContinuousEngine(_LaneEngineBase):
                          if s not in occupied.get(l, ())]
                 if not avail:
                     continue
+                # a quantized store entry is a 1-byte payload: its values
+                # widen exactly into the pool dtype (the scales ride the
+                # metadata push of the remap); the gauge counts its bytes
                 kk, vv = self.ctl.store[key]
-                k_buf[len(layers)] = kk
-                v_buf[len(layers)] = vv
+                k_buf[len(layers)] = self._stage_row(kk)
+                v_buf[len(layers)] = self._stage_row(vv)
                 sent += kk.nbytes + vv.nbytes
                 layers.append(l)
                 slots.append(avail[0])

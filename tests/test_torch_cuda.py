@@ -175,6 +175,82 @@ def test_kernel_bit_identical_across_staged_layout(card, dtype):
     np.testing.assert_array_equal(rel_s[:, P:].cpu().numpy(), 0.0)
 
 
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_kernel_on_quantized_staged_layout(card, mode):
+    """Kernel 1 on the async main path's layout with every other live page
+    quantized: within bf16 tolerance of its plain version and within
+    ``QUANT_TOLS`` of the unquantized pages; with no page flagged and unit
+    scales, bit-identical to the call without quant operands."""
+    q, unflagged, S = C.quantized_layout_pair(mode)
+
+    def call(fn, inputs, dtype=q.dtype):
+        args = C.call_args(C.to_torch(inputs, dtype, card))
+        out, rel = fn(*args, reserved_slots=S) \
+            if fn is K.paged_decode_attention_cuda else fn(*args)
+        torch.cuda.synchronize()
+        return out.float().cpu().numpy(), rel.cpu().numpy()
+
+    out_k, rel_k = call(K.paged_decode_attention_cuda, q.inputs)
+    out_p, rel_p = call(paged_decode_attention_ref, q.inputs)
+    np.testing.assert_allclose(out_k, out_p, **q.tols)
+    np.testing.assert_allclose(rel_k, rel_p, **q.tols)
+    out_f, rel_f = call(paged_decode_attention_ref, q.full, "float32")
+    np.testing.assert_allclose(out_k, out_f, **C.QUANT_TOLS[mode])
+    np.testing.assert_allclose(rel_k, rel_f, **C.QUANT_TOLS[mode])
+    plain = {k: a for k, a in unflagged.inputs.items()
+             if k not in ("page_quant", "kv_scales")}
+    out_u, rel_u = call(K.paged_decode_attention_cuda, unflagged.inputs)
+    out_n, rel_n = call(K.paged_decode_attention_cuda, plain)
+    np.testing.assert_array_equal(out_u, out_n)
+    np.testing.assert_array_equal(rel_u, rel_n)
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
+def test_tiny_quantized_paged_engine_matches_cpu(card, kv_quant):
+    """The tiny model at f32, greedy, with quantized pages on a thaw and
+    rewind trace: the card's async and sync arms give the CPU sync arm's
+    tokens and quant counters."""
+    import dataclasses
+    from repro_torch.launch.serve import launcher_config, serve_fifo
+    from repro_torch.models import model as MD
+    from repro_torch.serving.config import ServingConfig
+    from repro_torch.serving.engine import PagedContinuousEngine, Request
+    from repro_torch.serving.sampling import SamplingParams
+    cfg = launcher_config("llama3-8b", tiny=True)
+    cfg = dataclasses.replace(cfg, dtype="float32", freeze=dataclasses.
+                              replace(cfg.freeze, page_size=8, window=8,
+                                      quantile=0.6, k_soft=0.7,
+                                      entropy_abs_threshold=0.5,
+                                      rewalk_tokens=6))
+    params = MD.init_params(cfg, 0, "cpu")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (48, 20)]
+    runs = []
+    for dev, is_async in (("cpu", False), (card, False), (card, True)):
+        sv = ServingConfig(max_seq=256, n_lanes=2, max_active_pages=6,
+                           prefill_chunk=16, rewind_cooldown=12,
+                           burst_prefill=False, async_pipeline=is_async,
+                           kv_quant=kv_quant)
+        eng = PagedContinuousEngine(cfg, _to(params, dev), sv, device=dev)
+        reqs = [Request(u, p, n, SamplingParams.greedy())
+                for u, (p, n) in enumerate(zip(prompts, (70, 50)))]
+        serve_fifo(eng, reqs)
+        ctl = eng.ctl
+        runs.append(([r.result.tolist() for r in reqs],
+                     [r.telemetry.rewinds for r in reqs],
+                     (ctl.n_quantized_pages, ctl.n_swap_out, ctl.n_swap_in,
+                      ctl.n_thaw)))
+    assert runs[0][2][0] > 0
+    assert runs[1] == runs[0] and runs[2] == runs[0]
+
+
 def test_tiny_async_engines_match_sync_on_the_card(card):
     """The tiny model at f32, greedy, through both engines on the card:
     the async arm (ring on a side stream, staging uploads on another) gives

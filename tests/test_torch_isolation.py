@@ -14,7 +14,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models import model as MD
 from repro_torch.serving.config import ServingConfig
-from repro_torch.serving.engine import PagedContinuousEngine
+from repro_torch.serving.engine import (ContinuousEngine,
+                                        PagedContinuousEngine)
 
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 
@@ -56,12 +57,44 @@ def test_entry_points_raise_without_a_card():
     PagedContinuousEngine(cfg, params, sv, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("kv_quant", "int8"),
-                                         ("chaos", object())])
+@pytest.mark.parametrize("field,value", [("chaos", object())])
 def test_unported_serving_options_raise(field, value):
     with pytest.raises(NotImplementedError):
         ServingConfig(max_seq=64, n_lanes=1, max_active_pages=4,
                       **{field: value})
+
+
+def test_contiguous_engine_rejects_kv_quant():
+    """Quantized pages are served by the paged engine only: the contiguous
+    engine's quantized host offload is not ported."""
+    cfg = get_config("llama3-8b-tiny")
+    params = MD.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="kv_quant"):
+        ContinuousEngine(cfg, params, ServingConfig(max_seq=64, n_lanes=1,
+                                                    kv_quant="int8"),
+                         device="cpu")
+    with pytest.raises(SystemExit):
+        serve.main(["--tiny", "--device", "cpu", "--kv-quant", "int8"])
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
+def test_paged_engine_accepts_quant_modes(kv_quant):
+    cfg = get_config("llama3-8b-tiny")
+    params = MD.init_params(cfg, device="cpu")
+    eng = PagedContinuousEngine(cfg, params, ServingConfig(
+        max_seq=64, n_lanes=1, max_active_pages=4, kv_quant=kv_quant),
+        device="cpu")
+    assert eng.kv_quant == eng.ctl.kv_quant == kv_quant
+    assert eng.ctl.pool_dtype == eng.state.k.dtype
+
+
+def test_unknown_kv_quant_mode_raises_as_the_reference():
+    from repro.core.quant import resolve_mode as rresolve
+    with pytest.raises(ValueError) as ref:
+        rresolve("int4")
+    with pytest.raises(ValueError) as port:
+        ServingConfig(kv_quant="int4")
+    assert str(port.value) == str(ref.value)
 
 
 @pytest.mark.parametrize("field", ["async_pipeline", "speculative_thaw",

@@ -72,6 +72,30 @@ def test_plain_matches_pallas_and_reference(name):
                                    **C.QUANT_TOLS[case.mode])
 
 
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quantized_main_path_layout(mode):
+    """The async main path's P + S layout with every other live page
+    quantized, as the chip smoke times the kernel on it: the plain version
+    agrees with ``repro``'s reference at bf16 tolerance and with the
+    unquantized pages within ``QUANT_TOLS``; with no page flagged and unit
+    scales it gives the call without quant operands bit for bit."""
+    q, unflagged, S = C.quantized_layout_pair(mode)
+    out_t, rel_t = _port(q.inputs, q.dtype)
+    out_r, rel_r = rref.paged_decode_attention_ref(*_jax(q.inputs, q.dtype))
+    np.testing.assert_allclose(_np(out_t), _np(out_r), **q.tols)
+    np.testing.assert_allclose(_np(rel_t), _np(rel_r), **q.tols)
+    out_f, rel_f = _port(q.full, "float32")
+    np.testing.assert_allclose(_np(out_t), _np(out_f), **C.QUANT_TOLS[mode])
+    np.testing.assert_allclose(_np(rel_t), _np(rel_f), **C.QUANT_TOLS[mode])
+    for p in q.zero_rel_pages:
+        np.testing.assert_array_equal(rel_t[:, p].numpy(), 0.0)
+    plain = {k: a for k, a in unflagged.inputs.items()
+             if k not in ("page_quant", "kv_scales")}
+    for a, b in zip(_port(unflagged.inputs, q.dtype), _port(plain, q.dtype)):
+        assert torch.equal(a, b)
+    assert (q.inputs["page_quant"] != 0).sum() == 13 and S == 3
+
+
 @pytest.mark.parametrize("pair", ["none_identity", "poisoned_scales",
                                   "staging_slot"])
 def test_contract_pairs_bit_identical(pair):

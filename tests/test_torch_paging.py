@@ -256,7 +256,18 @@ def _scenario(mod, cfg, kv_quant):
     return snaps
 
 
-@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def _same_store_page(t, r, msg):
+    """A store page of the port against the reference's: 1-byte payloads
+    byte for byte (fp8 is raw e4m3 bits in the port, ``ml_dtypes`` e4m3 in
+    the reference), full-precision pages by value."""
+    r = np.asarray(r)
+    if r.dtype.itemsize == 1:
+        _same(t.view(np.uint8), r.view(np.uint8), msg)
+    else:
+        _same(t.astype(np.float32), r.astype(np.float32), msg)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8", "fp8"])
 def test_controller_matches_reference(kv_quant):
     rcfg = dataclasses.replace(rget_config("llama3-8b-tiny"))
     tcfg = tget_config("llama3-8b-tiny")
@@ -276,8 +287,7 @@ def test_controller_matches_reference(kv_quant):
         assert r[3].keys() == t[3].keys(), tag
         for k in r[3]:
             for a, b in zip(t[3][k], r[3][k]):
-                _same(a.astype(np.float32), np.asarray(b, np.float32),
-                      f"{tag} store {k}")
+                _same_store_page(a, b, f"{tag} store {k}")
         assert r[4] == t[4], tag
         assert r[5] == t[5], tag
         if r[6] is None or isinstance(r[6], (bool, int)):
@@ -285,6 +295,39 @@ def test_controller_matches_reference(kv_quant):
         else:
             _same(t[6], r[6], tag)
     assert port[-1][5][0] > 0 and port[-1][5][1] > 0 and port[-1][5][2] > 0
+
+
+def _frozen_page_pool(mod):
+    """llama3-8b-tiny's pages (64 slots, 2 kv heads, hd 64): one layer, one
+    lane, 3 mapped pages, page 0 frozen; K then V from seed-0 normals."""
+    cfg = (rget_config if mod is RP else tget_config)("llama3-8b-tiny")
+    page, kvh, hd = cfg.freeze.page_size, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(0)
+    shape = (1, 1, 3, page, kvh, hd)
+    pool = {"k": rng.standard_normal(shape).astype(np.float32),
+            "v": rng.standard_normal(shape).astype(np.float32),
+            "page_table": np.arange(3, dtype=np.int32).reshape(1, 1, 3),
+            "slot_mask": np.ones((1, 1, 3, page), bool),
+            "page_quant": np.zeros((1, 1, 3), np.int32),
+            "kv_scales": np.ones((1, 1, 3, 2, kvh), np.float32)}
+    fstate = {"frozen": np.array([[[True, False, False]]])}
+    ctl = mod.PagedController(cfg=cfg, batch=1, max_active_pages=3)
+    ctl.kv_quant = "fp8"
+    ctl._quantize_frozen_resident(pool, fstate, range(1))
+    return pool
+
+
+def test_fp8_in_place_quantization_writes_values():
+    """The in-place pass writes a frozen page's e4m3 payload *values* into
+    the pool, as the reference's ``ml_dtypes`` payload does.  It used to
+    write the raw bits: element k[0,0,0,0,0,0] read 87.0 (bits 0x57)
+    where the reference reads 15.0, and all 8,192 K elements differed."""
+    ref, port = _frozen_page_pool(RP), _frozen_page_pool(TP)
+    assert ref["k"][0, 0, 0, 0, 0, 0] == 15.0
+    assert port["k"][0, 0, 0, 0, 0, 0] == 15.0
+    for key in ref:
+        _same(port[key], ref[key], key)
+    assert (port["page_quant"][0, 0] == [2, 0, 0]).all()
 
 
 def test_bf16_host_view_round_trip_is_bit_exact():
