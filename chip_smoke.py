@@ -44,7 +44,13 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      card async and sync, CPU sync and async: tokens and quant counters
      equal, byte gauges equal call for call card vs CPU, stashed payloads
      identical between the card's arms and within one quantization step
-     of the CPU's;
+     of the CPU's; the stash-budget ladder on the paged engine, card vs
+     CPU call for call (tokens, the controller's counters, the ladder's
+     counters and gauges, the stash byte invariant): a swapping trace
+     under a 4096-byte budget sync, async and with int8 pages async
+     (swap-outs denied, timers deepened, prefetch denied), and the
+     thaw/rewind trace async with rung 1 alone at 1.25x its unbounded peak
+     (tokens equal to the unbounded run's);
   5. main paths — llama3-8b at full published width and depth (bf16 random
      weights made on the card from a seed, once) serves 8 requests of 128
      new tokens through the paged engine and then through the contiguous
@@ -59,7 +65,13 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      requests with int8 pages (``kv_quant="int8"``), async and
      ``--no-async``: identical tokens, pages quantized, kernel 1 launched
      every step, ``kv_device_bytes`` (the reference's model of packed
-     pages) below the unquantized serve's.  ``Engine.generate`` then runs the
+     pages) below the unquantized serve's.  Then the paged engine serves
+     the same requests async under a host-stash budget taken from the
+     unbounded async serve's ``peak_stash_bytes``: at peak / 0.7 (rung 1
+     only) with tokens equal to the unbounded serve's, no swap-out denied
+     and no timer deepened, and at half the peak with timers deepened and
+     swap-outs denied, every request completing; kernel 1 launched every
+     step in both.  ``Engine.generate`` then runs the
      paper's Table-1 protocol (14-token prompt, 500 new tokens) with
      freeze off and on, ``launch/bench_async.py`` its smoke trace on
      the card (sync vs async paged engine, tiny model), and
@@ -863,6 +875,150 @@ def phase_quant_reference(torch, K, launcher, MD, engine_mod, cfg_mod):
             f"{max(gap_s[2], gap_a[2]):.2e}")
 
 
+# card-vs-CPU traces of the stash-budget ladder (tiny model, f32, greedy):
+# the swapping trace of tests/test_torch_ladder.py under a 4096-byte budget
+# (every rung and the swap-out ceiling engage), sync, async and int8 async,
+# and the thaw/rewind trace with rung 1 alone
+LADDER_SWAP = dict(
+    freeze=dict(page_size=8, window=8, quantile=0.6, k_soft=1.0,
+                recovery_enabled=False),
+    prompts=(48, 12, 20), n_toks=(60, 20, 24),
+    serving=dict(max_seq=256, n_lanes=2, max_active_pages=6,
+                 prefill_chunk=16))
+RUNG1_ONLY = dict(deny_prefetch=0.0, deepen_timers=2.0,
+                  throttle_admissions=2.0, shed=2.0)
+# label, trace, async, kv_quant, budget (None: 1.25x the unbounded peak),
+# ladder thresholds (None: the defaults)
+LADDER_CASES = (
+    ("(a) swap sync", LADDER_SWAP, False, "none", 4096, None),
+    ("(b) swap async", LADDER_SWAP, True, "none", 4096, None),
+    ("(c) thaw async rung 1", REFERENCE_TRACES["recovery_thaw"], True,
+     "none", None, RUNG1_ONLY),
+    ("(e) swap int8 async", LADDER_SWAP, True, "int8", 4096, None),
+)
+LADDER_DEVICES = ("cuda", "cpu")
+LADDER_CTL = ("n_denied_offloads", "n_swap_out", "n_swap_in",
+              "n_deepen_skips", "n_thaw", "n_thaw_remap", "n_trims",
+              "n_quantized_pages", "stash_bytes")
+
+
+def _ladder_gauges(eng):
+    """The controller counters and the engine's ladder gauges after one
+    call, with the stash byte invariant checked."""
+    ctl = eng.ctl
+    assert ctl.stash_bytes == sum(k.nbytes + v.nbytes
+                                  for k, v in ctl.store.values())
+    return tuple(getattr(ctl, f) for f in LADDER_CTL) + (
+        eng.peak_stash_bytes, eng.ladder_stage, eng.robust["ladder_deny"],
+        eng.robust["ladder_deepen"], eng.wall_step)
+
+
+def _ladder_run(K, launcher, engine_mod, cfg_mod, cfg, params, prompts, spec,
+                dev, is_async, kv_quant, budget, ladder):
+    """One budgeted paged serve of a tiny trace, its gauges recorded after
+    every engine call."""
+    kw = {} if ladder is None else {"ladder": engine_mod.LadderConfig(
+        **ladder)}
+    sv = cfg_mod.ServingConfig(**spec["serving"], async_pipeline=is_async,
+                               kv_quant=kv_quant, stash_budget_bytes=budget,
+                               **kw)
+    eng = engine_mod.PagedContinuousEngine(cfg, params, sv, device=dev)
+    reqs = [engine_mod.Request(u, p, n, engine_mod.SamplingParams.greedy())
+            for u, (p, n) in enumerate(zip(prompts, spec["n_toks"]))]
+    calls, orig = [], eng.step_once
+
+    def recorded():
+        out = orig()
+        calls.append(_ladder_gauges(eng))
+        return out
+
+    eng.step_once = recorded
+    before = K.paged_decode_attention_cuda.launches
+    launcher.serve_fifo(eng, reqs)
+    ctl = eng.ctl
+    assert not ctl.store and not ctl.frozen_meta and not ctl.staged_keys
+    return dict(tokens=[r.result for r in reqs], calls=calls,
+                steps=eng.wall_step, robust=eng.robust_snapshot(),
+                launched=K.paged_decode_attention_cuda.launches - before,
+                rewinds=[r.telemetry.rewinds for r in reqs],
+                stage=eng.S_stage, peak=eng.peak_stash_bytes)
+
+
+def phase_ladder_reference(K, launcher, MD, engine_mod, cfg_mod):
+    """The stash-budget ladder on the tiny f32 model, greedy, through the
+    paged engine on the card (kernel 1) and on the CPU (plain version):
+    tokens, rewinds, the controller's counters and the ladder's counters
+    and gauges equal call for call, kernel 1 launched every step on the
+    card.  Under the 4096-byte budget swap-outs are denied and timers
+    deepened; with rung 1 alone the tokens are the unbounded run's."""
+    import dataclasses
+    for label, spec, is_async, kv_quant, budget, ladder in LADDER_CASES:
+        cfg = launcher.launcher_config("llama3-8b", tiny=True)
+        cfg = dataclasses.replace(cfg, dtype="float32",
+                                  freeze=dataclasses.replace(
+                                      cfg.freeze, **spec["freeze"]))
+        params_cpu = MD.init_params(cfg, SEED, "cpu")
+        rng = np.random.RandomState(SEED)
+        prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in spec["prompts"]]
+        runs, free = {}, {}
+        for dev in LADDER_DEVICES:
+            params = params_cpu if dev == "cpu" else _to_device(params_cpu,
+                                                                dev)
+            args = (K, launcher, engine_mod, cfg_mod, cfg, params, prompts,
+                    spec, dev, is_async, kv_quant)
+            if budget is None:
+                free[dev] = _ladder_run(*args, None, None)
+                run_budget = int(1.25 * free[dev]["peak"])
+            else:
+                run_budget = budget
+            runs[dev] = _ladder_run(*args, run_budget, ladder)
+        g, c = (runs[d] for d in LADDER_DEVICES)
+        for u, (a, b) in enumerate(zip(g["tokens"], c["tokens"])):
+            i = _first_divergence(a, b)
+            assert i is None, f"ladder {label} request {u}: card and CPU " \
+                              f"tokens diverge at {i}"
+        assert g["rewinds"] == c["rewinds"], (label, g["rewinds"])
+        assert len(g["calls"]) == len(c["calls"]), label
+        for n, (a, b) in enumerate(zip(g["calls"], c["calls"])):
+            assert a == b, (label, f"call {n + 1}", a, b)
+        assert g["robust"] == c["robust"], (label, g["robust"], c["robust"])
+        assert g["launched"] == g["steps"] * cfg.num_layers, label
+        assert c["launched"] == 0, label
+        assert g["stage"] == (3 if is_async else 0), label
+        rs = g["robust"]
+        denied = g["calls"][-1][0]
+        if budget is None:
+            base = free[LADDER_DEVICES[0]]
+            assert free["cuda"]["calls"][-1] == free["cpu"]["calls"][-1]
+            for u, (a, b) in enumerate(zip(g["tokens"], base["tokens"])):
+                i = _first_divergence(a, b)
+                assert i is None, f"ladder {label} request {u}: rung 1 " \
+                                  f"changed the tokens at {i}"
+            assert rs["ladder_deny"] > 0 and rs["ladder_deepen"] == 0
+            assert denied == 0, denied
+        else:
+            assert denied > 0 and rs["ladder_deepen"] > 0, (denied, rs)
+            assert rs["ladder_deny"] > 0 or not is_async, rs
+        last = dict(zip(LADDER_CTL, g["calls"][-1]))
+        log(f"reference ladder {label}: tiny f32 greedy, "
+            f"{len(spec['prompts'])} requests, budget "
+            f"{rs['stash_budget_bytes']} B: card == CPU tokens, rewinds "
+            f"{g['rewinds']} and {len(g['calls'])} calls of counters and "
+            f"gauges; denied offloads {denied}, swaps "
+            f"{last['n_swap_out']} out / {last['n_swap_in']} in, "
+            f"{last['n_thaw']} thawed ({last['n_thaw_remap']} remap-only), "
+            f"{last['n_deepen_skips']} deepen skips, {last['n_trims']} trims, "
+            f"{last['n_quantized_pages']} quantized pages; ladder deny "
+            f"{rs['ladder_deny']}, deepen {rs['ladder_deepen']}; peak stash "
+            f"{rs['peak_stash_bytes']} B; {g['launched']} kernel launches "
+            f"(= {g['steps']} steps x {cfg.num_layers})"
+            + (f"; tokens == the unbounded run's (peak "
+               f"{free[LADDER_DEVICES[0]]['peak']} B, "
+               f"{free[LADDER_DEVICES[0]]['calls'][-1][5]} remap-only thaws)"
+               if budget is None else ""))
+
+
 def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
@@ -990,11 +1146,13 @@ def phase_main_path(torch, kernels, launcher, engine_mod, cfg_mod, params,
             f"{ctl.n_swap_out} out / {ctl.n_swap_in} in / {ctl.n_thaw} "
             f"thawed ({ctl.n_thaw_remap} remap-only); "
             f"{engine.n_boundary_ticks} boundary ticks, {engine.n_kv_pushes} "
-            f"K/V pushes; {sum(r.telemetry.rewinds for r in done)} rewinds")
+            f"K/V pushes; {sum(r.telemetry.rewinds for r in done)} rewinds; "
+            f"peak_stash_bytes {engine.peak_stash_bytes} (unbounded)")
         arms[label] = dict(tokens={r.uid: r.result for r in done},
                            blocked=engine.stats.host_blocked_fraction,
                            launches=launches,
-                           kv_bytes=engine.kv_device_bytes)
+                           kv_bytes=engine.kv_device_bytes,
+                           peak_stash=engine.peak_stash_bytes)
         if is_async:
             _profile_serve(torch, launcher, engine_mod, cfg, engine,
                            card_line, "paged")
@@ -1064,6 +1222,65 @@ def phase_quant_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
         del engine
         torch.cuda.empty_cache()
     _same_tokens(arms, "paged int8")
+
+
+def phase_ladder_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
+                           params, card_line, base):
+    """The paged path under a host-stash budget: PagedContinuousEngine at
+    full width, async, on the main path's 8 requests, with budgets taken
+    from the unbounded async arm's ``peak_stash_bytes``.  At peak / 0.7
+    only rung 1 engages (prefetch denied, resident copies trimmed): no
+    swap-out is denied, no timer deepened, and the tokens are the unbounded
+    arm's.  At half the peak timers deepen and swap-outs are denied, and
+    every request still completes its tokens."""
+    cfg = _full_width_config(launcher)
+    free = base[MAIN_ARMS[0][0]]
+    peak = free["peak_stash"]
+    assert peak > 0, peak
+    launched = []
+    for label, budget in (("rung 1", -(-peak * 10 // 7)),
+                          ("half peak", peak // 2)):
+        sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4,
+                                   max_active_pages=8, prefill_chunk=256,
+                                   seed=SEED, async_pipeline=True,
+                                   stash_budget_bytes=budget)
+        engine = engine_mod.PagedContinuousEngine(cfg, params, sv,
+                                                  device="cuda")
+        done, counts, timing, steps = _serve_main(torch, launcher, engine_mod,
+                                                  cfg, engine, kernels)
+        launches, ctl, rs = (counts["paged_decode_attention"], engine.ctl,
+                             engine.robust_snapshot())
+        assert launches == steps * cfg.num_layers, (launches, steps)
+        assert counts["freeze_decode_attention"] == 0 and \
+            counts["relevance_freeze_update"] == 0, counts
+        assert not ctl.store and not ctl.frozen_meta and not ctl.staged_keys
+        assert engine.S_stage == 3
+        if label == "rung 1":
+            assert rs["ladder_deny"] > 0 and rs["ladder_deepen"] == 0, rs
+            assert ctl.n_denied_offloads == 0, ctl.n_denied_offloads
+            for r in done:
+                i = _first_divergence(r.result, free["tokens"][r.uid])
+                assert i is None, f"ladder rung 1 request {r.uid}: tokens " \
+                                  f"diverge from the unbounded serve's at {i}"
+            same = "tokens == the unbounded async serve's for all 8 requests"
+        else:
+            assert rs["ladder_deepen"] > 0 and ctl.n_denied_offloads > 0, \
+                (rs, ctl.n_denied_offloads)
+            n_same = sum(int(np.sum(r.result == free["tokens"][r.uid]))
+                         for r in done)
+            same = f"{n_same} of 1024 tokens equal to the unbounded serve's"
+        log(f"main path paged ladder {label} [{card_line}], async, no "
+            f"profiler: budget {budget} B against the unbounded peak "
+            f"{peak} B; {launcher.ladder_line(engine)}; {steps} decode "
+            f"steps, {launches} kernel launches (= steps x 32); {timing}; "
+            f"denied offloads {ctl.n_denied_offloads}, deepen skips "
+            f"{ctl.n_deepen_skips}, trims {ctl.n_trims}; swaps "
+            f"{ctl.n_swap_out} out / {ctl.n_swap_in} in / {ctl.n_thaw} "
+            f"thawed; {same}")
+        launched.append(launches)
+        del engine
+        torch.cuda.empty_cache()
+    return launched
 
 
 def phase_contiguous_main_path(torch, kernels, launcher, engine_mod,
@@ -1594,6 +1811,7 @@ def main() -> int:
     phase_contiguous_reference(torch, kernels, launcher, MD, engine_mod,
                                cfg_mod)
     phase_quant_reference(torch, K, launcher, MD, engine_mod, cfg_mod)
+    phase_ladder_reference(K, launcher, MD, engine_mod, cfg_mod)
     cfg = _full_width_config(launcher)
     t0 = time.perf_counter()
     params = MD.init_params(cfg, SEED, "cuda")
@@ -1605,6 +1823,9 @@ def main() -> int:
     launches = paged[MAIN_ARMS[0][0]]["launches"]
     phase_quant_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
                           params, card_line, paged)
+    ladder_launches = phase_ladder_main_path(torch, kernels, launcher,
+                                             engine_mod, cfg_mod, params,
+                                             card_line, paged)
     counts = phase_contiguous_main_path(torch, kernels, launcher, engine_mod,
                                         cfg_mod, params, card_line)
     phase_table1(torch, kernels, launcher, engine_mod, params, card_line)
@@ -1630,7 +1851,8 @@ def main() -> int:
         dict(name="paged_decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_decode_attn.cu",
              replaces="src/repro/kernels/paged_decode_attn.py:117",
-             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             launches=launches, launches_ladder_serves=ladder_launches,
+             max_abs_err=err, ms=ms, plain_ms=plain_ms,
              bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
              **{f"{k}_{mode}_pages": v for mode, t in quant_t.items()
                 for k, v in zip(("ms", "plain_ms", "bound_ms"), t)}),

@@ -18,6 +18,8 @@ engines, on the card unless ``--device cpu`` is given:
         --device cpu --no-async
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged \
         --device cpu --kv-quant int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged \
+        --device cpu --stash-budget-mb 0.25
 
 Both continuous engines run the async DMA pipeline by default (the
 per-step fetch is consumed one call later; on ``--paged`` likely thaws are
@@ -27,6 +29,9 @@ baseline with the same decisions and tokens.  ``--kv-quant int8|fp8``
 with per-page, per-kv-head scales, dequantized by the attention kernel; the
 device pool keeps its dtype, so the ``kv-quant`` line's savings and the
 dma byte gauges are the reference's model of packed pages.
+``--stash-budget-mb`` bounds the host stash: the engine's ladder rungs
+engage as stash pressure rises, and a ``chaos: ... ladder: ...`` line
+reports their counters and the stash peak against the budget.
 
 The freeze settings match ``repro.launch.serve``: ``--quantile-tau q > 0``
 switches to the adaptive quantile threshold with window 16, k_soft 1.0 and
@@ -131,6 +136,8 @@ def summary_lines(engine: LaneEngine, done: List[Request],
                  f"blocking {s.blocking_d2h} D2H / {s.blocking_h2d} H2D  "
                  f"async {s.async_d2h} D2H / {s.async_h2d} H2D  "
                  f"blocked_s {s.blocked_s:.4f}  waited_s {s.waited_s:.4f}")
+    if engine.stash_budget_bytes is not None:
+        lines.append(ladder_line(engine))
     if engine.fcfg.recovery_enabled:
         rewinds = sum(r.telemetry.rewinds for r in done
                       if r.telemetry is not None)
@@ -141,6 +148,23 @@ def summary_lines(engine: LaneEngine, done: List[Request],
     lines.append("terminal: " + "  ".join(
         f"{k}={v}" for k, v in sorted(statuses.items())))
     return lines
+
+
+def ladder_line(engine: LaneEngine) -> str:
+    """The reference launcher's robustness line under a stash budget: the
+    chaos counters (zeros, no faults are injected), the ladder's rung
+    counters, and the stash peak against the budget."""
+    rs = engine.robust_snapshot()
+    line = (f"chaos: injected={rs['injected']} retries={rs['retries']} "
+            f"breaker_trips={rs['breaker_trips']}  "
+            f"ladder: deny={rs['ladder_deny']} "
+            f"deepen={rs['ladder_deepen']} "
+            f"throttle={rs['ladder_throttle']} "
+            f"shed={rs['ladder_shed']}  "
+            f"stash peak {rs['peak_stash_bytes']}B")
+    if rs["stash_budget_bytes"] is not None:
+        line += f" / budget {rs['stash_budget_bytes']}B"
+    return line
 
 
 def main(argv=None):
@@ -187,6 +211,12 @@ def main(argv=None):
                          "per-page per-kv-head scales, dequantized in the "
                          "attention kernel; 'none' is the unquantized "
                          "engine")
+    ap.add_argument("--stash-budget-mb", type=float, default=None,
+                    help="host-stash memory budget (MiB); engages the "
+                         "degradation ladder's engine rungs as stash "
+                         "pressure rises (deny prefetch and trim resident "
+                         "copies, then deepen freeze timers) and caps "
+                         "swap-outs at the budget")
     ap.add_argument("--device", default="cuda",
                     help="torch device ('cuda' or 'cpu')")
     args = ap.parse_args(argv)
@@ -221,12 +251,14 @@ def main(argv=None):
         print(served_line(list(sched.done.values()),
                           time.perf_counter() - t0))
         return
+    budget = int(args.stash_budget_mb * 2**20) \
+        if args.stash_budget_mb is not None else None
     sv = ServingConfig(max_seq=args.max_seq, n_lanes=args.batch,
                        enable_freeze=not args.no_freeze,
                        prefill_chunk=args.prefill_chunk,
                        max_active_pages=args.pages if args.paged else None,
                        seed=args.seed, async_pipeline=args.async_pipeline,
-                       kv_quant=args.kv_quant)
+                       stash_budget_bytes=budget, kv_quant=args.kv_quant)
     engine = (PagedContinuousEngine if args.paged else ContinuousEngine)(
         cfg, params, sv, device=device)
     done, seconds = serve_fifo(engine, reqs)

@@ -14,8 +14,11 @@ reference's: the async DMA pipeline (``async_pipeline=True``) with
 speculative thaw staging following it (``speculative_thaw=None``) into
 ``speculative_slots`` staging slots a lane on the paged engine.
 ``kv_quant`` ("none", "int8" or "fp8") is validated here; the paged engine
-serves every mode and the contiguous one only "none".  Chaos injection is
-not ported and raises at construction.
+serves every mode and the contiguous one only "none".  ``stash_budget_bytes``
+bounds the host stash and ``ladder`` (an ``engine.LadderConfig``, None for
+its defaults) sets the degradation ladder's thresholds; the engines apply
+its rungs 1-2 themselves.  Chaos injection is not ported and raises at
+construction.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ class ServingConfig:
     async_pipeline: bool = True
     chaos: Optional[Any] = None
     stash_budget_bytes: Optional[int] = None
+    ladder: Optional[Any] = None                # engine.LadderConfig
     quarantine_window: int = 64
     # ---- recovery rewind budget ---- #
     max_rewinds: int = 4

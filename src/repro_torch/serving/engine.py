@@ -27,6 +27,12 @@ controller, and pushes them back once (metadata only when no K/V moved).
 The async paged engine also stages likely-thaw pages into
 ``speculative_slots`` spare slots a lane, so a thaw installs as a
 page-table remap plus a device-side copy instead of an upload.
+
+Under ``stash_budget_bytes`` the host stash is capped (swap-outs and
+offloads past the budget are denied) and the degradation ladder
+(``LadderConfig``) reads its pressure: the paged engine stops staging and
+frees the host copies of resident pages at rung 1, and deepens the
+offloaded freeze timers at rung 2.
 """
 from __future__ import annotations
 
@@ -98,6 +104,49 @@ class Request:
     result: Optional[np.ndarray] = None
     telemetry: Optional[GenerationResult] = None
     status: RequestStatus = RequestStatus.PENDING
+
+
+@dataclasses.dataclass
+class LadderConfig:
+    """Graceful-degradation ladder thresholds, as fractions of the
+    host-stash budget (``stash_bytes / stash_budget_bytes``).  Each rung
+    engages on its own whenever pressure reaches ITS threshold, so a run
+    can disable one rung by raising its threshold out of reach (e.g.
+    ``deepen_timers=2.0`` for parity-critical serving) while the rungs
+    around it keep working.  The defaults are ordered from
+    parity-preserving to lossy:
+
+    1. **deny prefetch** — stop speculative thaw staging and free the
+       redundant host copies of device-resident pages (paged engine).
+       Pure optimization rollback: token streams are unchanged.
+    2. **deepen timers** — offloaded freeze timers decrement every other
+       boundary tick, so stashed pages come home ~2x slower.  Changes
+       page-visibility timing, so it does not preserve token parity.
+    3. **throttle admissions** — a scheduler stops admitting work until
+       pressure clears.
+    4. **shed** — a scheduler suspends the lowest-priority running lane.
+
+    The engines apply rungs 1-2; rungs 3-4 belong to an SLO scheduler,
+    which this package does not have yet, so ``ladder_throttle`` and
+    ``ladder_shed`` stay 0.
+    """
+    deny_prefetch: float = 0.60
+    deepen_timers: float = 0.75
+    throttle_admissions: float = 0.85
+    shed: float = 0.95
+
+    def stage(self, pressure: float) -> int:
+        """Highest engaged rung (0 = nominal .. 4 = shed) — reporting
+        only; rung decisions compare against their own thresholds."""
+        if pressure >= self.shed:
+            return 4
+        if pressure >= self.throttle_admissions:
+            return 3
+        if pressure >= self.deepen_timers:
+            return 2
+        if pressure >= self.deny_prefetch:
+            return 1
+        return 0
 
 
 class Engine:
@@ -262,12 +311,18 @@ class _LaneEngineBase:
         self.peak_kv_bytes = 0      # high-water device KV (incl. prefill
                                     # scratch) — the memory metric
         self.stats = TransferStats()
+        # host-stash budget and its degradation ladder (``LadderConfig``)
+        self.stash_budget_bytes = sv.stash_budget_bytes
+        self.ladder_cfg = sv.ladder or LadderConfig()
+        self.peak_stash_bytes = 0
         # lane-level anomaly quarantine: a non-finite-entropy step gets one
         # bounded rewind-and-retry; a lane that re-poisons within
         # ``quarantine_window`` decode steps is retired "quarantined"
         self.quarantine_window = sv.quarantine_window
         self._last_quarantine = np.full(n_lanes, -10**9, np.int64)
-        self.robust = {"quarantine_rewinds": 0, "quarantined": 0}
+        self.robust = {"quarantine_rewinds": 0, "quarantined": 0,
+                       "ladder_deny": 0, "ladder_deepen": 0,
+                       "ladder_throttle": 0, "ladder_shed": 0}
         self.ring = FetchRing(self.stats, depth=1 if sv.async_pipeline else 0,
                               device=self.device)
         self.staging = HostStaging(pinned=self.device.type == "cuda")
@@ -281,6 +336,49 @@ class _LaneEngineBase:
     def _note_kv_peak(self, scratch_bytes: int = 0) -> None:
         self.peak_kv_bytes = max(self.peak_kv_bytes,
                                  self.kv_device_bytes + scratch_bytes)
+
+    # ---------------- host-stash budget ladder ---------------- #
+    def _stash_bytes(self) -> int:          # subclasses override
+        return 0
+
+    def _exported_bytes(self) -> int:       # subclasses override
+        return 0
+
+    @property
+    def stash_pressure(self) -> float:
+        """Measured host-stash bytes over the configured budget (0.0 when
+        unbounded) — the degradation ladder's input."""
+        if not self.stash_budget_bytes:
+            return 0.0
+        return self._stash_bytes() / self.stash_budget_bytes
+
+    @property
+    def ladder_stage(self) -> int:
+        """Current degradation stage (0 = nominal .. 4 = shed); see
+        ``LadderConfig``.  The engine applies stages 1-2 itself."""
+        return self.ladder_cfg.stage(self.stash_pressure)
+
+    def _note_stash_peak(self) -> None:
+        self.peak_stash_bytes = max(self.peak_stash_bytes,
+                                    self._stash_bytes())
+
+    def robust_snapshot(self) -> Dict[str, Any]:
+        """Fault, ladder and quarantine counters for serving reports.  The
+        port injects no faults yet, so the chaos keys report zeros, as a
+        chaos-less engine of the reference does."""
+        return {
+            "endpoints": {},
+            "injected": 0,
+            "injected_by_site": {},
+            "retries": 0,
+            "breaker_trips": 0,
+            "ladder_stage": self.ladder_stage,
+            "stash_bytes": self._stash_bytes(),
+            "exported_bytes": self._exported_bytes(),
+            "peak_stash_bytes": self.peak_stash_bytes,
+            "stash_budget_bytes": self.stash_budget_bytes,
+            **self.robust,
+        }
 
     @staticmethod
     def _finalize_status(req: Request) -> None:
@@ -484,6 +582,9 @@ class ContinuousEngine(_LaneEngineBase):
         """Live device KV footprint (the memory metric)."""
         return self.state.cache_k.nbytes + self.state.cache_v.nbytes
 
+    def _stash_bytes(self) -> int:
+        return self.offloader.stash_bytes if self.offloader else 0
+
     def _lane_audit(self, lane: int, when: str) -> Dict[str, int]:
         """``debug_lane_checks`` admit log: the lane's frozen slots (summed
         over layers) and recovery steps seen, in one blocking pull (a
@@ -649,6 +750,7 @@ class ContinuousEngine(_LaneEngineBase):
             self.lanes[i].request.telemetry.offloaded_tokens.append(
                 self.offloader.offloaded_tokens_lane(i)
                 if self.offloader is not None else 0)
+        self._note_stash_peak()
 
         finished = list(quarantined)
         for i in active:
@@ -748,10 +850,6 @@ class PagedContinuousEngine(_LaneEngineBase):
             else sv.speculative_thaw
         self.S_stage = sv.speculative_slots \
             if (speculative and self.enable_freeze) else 0
-        if self.S_stage and sv.stash_budget_bytes is not None:
-            raise NotImplementedError(
-                "stash_budget_bytes with speculative thaw staging: the "
-                "stash-budget ladder that gates staging is not ported yet")
         self.P_total = self.P + self.S_stage
         self.state = MD.init_paged_decode_state(
             cfg, self.n_lanes, self.P, device=self.device,
@@ -763,6 +861,7 @@ class PagedContinuousEngine(_LaneEngineBase):
         self.ctl = PagedController(cfg=cfg, batch=self.n_lanes,
                                    max_active_pages=self.P)
         self.ctl.kv_quant = sv.kv_quant
+        self.ctl.stash_budget_bytes = sv.stash_budget_bytes
         # under a quant mode the controller computes on K/V values: a bf16
         # pool's K/V reach it as f32 values and come back rounded to bf16
         # (exact for every payload and every value read from the pool)
@@ -792,6 +891,12 @@ class PagedContinuousEngine(_LaneEngineBase):
     def _offloaded_tokens_lane(self, lane: int) -> int:
         n = sum(1 for key in self.ctl.frozen_meta if key[1] == lane)
         return n * self.page // self.L_attn
+
+    def _stash_bytes(self) -> int:
+        return self.ctl.stash_bytes
+
+    def _exported_bytes(self) -> int:
+        return self.ctl.exported_bytes
 
     def _scratch_bytes(self) -> int:
         return sum(pp.scratch.cache_k.nbytes + pp.scratch.cache_v.nbytes
@@ -1077,6 +1182,16 @@ class PagedContinuousEngine(_LaneEngineBase):
         with the force-free backstop), one push, then the queued staging
         remaps."""
         self.n_boundary_ticks += 1
+        # the ladder's engine rungs: under stash pressure first free the
+        # redundant host copies of resident pages (stage 1+, parity-free),
+        # then deepen the offloaded timers so stashed pages come home half
+        # as fast (stage 2+); stages 3-4 belong to a scheduler
+        pressure = self.stash_pressure
+        if pressure >= self.ladder_cfg.deny_prefetch:
+            self.ctl.trim_resident_copies()
+        self.ctl.deepen_timers = pressure >= self.ladder_cfg.deepen_timers
+        if self.ctl.deepen_timers:
+            self.robust["ladder_deepen"] += 1
         self.ctl.begin_tick()
         self._prune_staged()
         pool, fstate = self._pull_lanes(boundary)
@@ -1105,6 +1220,7 @@ class PagedContinuousEngine(_LaneEngineBase):
                        " — freezing is disabled, so nothing swaps "
                        "out; admission should have rejected this"))
             self.tail_slot[:, i] = slots
+        self._note_stash_peak()
         self._push_lanes(pool, fstate, boundary, kv=self.ctl.kv_dirty)
         self._run_remaps()
 
@@ -1263,6 +1379,11 @@ class PagedContinuousEngine(_LaneEngineBase):
         layer that has it stashed.  Staging never changes a page table,
         so a misprediction costs bandwidth, not correctness."""
         if not self.S_stage:
+            return
+        if self.stash_pressure >= self.ladder_cfg.deny_prefetch:
+            # ladder stage 1: no speculative staging under stash pressure
+            # (thaws fall back to the upload path, token-identically)
+            self.robust["ladder_deny"] += 1
             return
         cands = [i for i in decode_lanes
                  if i in self.pending_thaws or self._urgency[i] >= WR]
