@@ -50,7 +50,13 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      under a 4096-byte budget sync, async and with int8 pages async
      (swap-outs denied, timers deepened, prefetch denied), and the
      thaw/rewind trace async with rung 1 alone at 1.25x its unbounded peak
-     (tokens equal to the unbounded run's);
+     (tokens equal to the unbounded run's); the contiguous engine's int8
+     and fp8 host offload on tests/test_torch_contiguous_quant.py's trace,
+     unbounded and at half its unbounded stash peak, card async and sync,
+     CPU sync and async: tokens equal, offload counters and stash bytes
+     equal call for call card vs CPU and at the end equal to the
+     reference's (pinned in that test), payloads identical between the
+     card's arms and within one quantization step of the CPU's;
   5. main paths — llama3-8b at full published width and depth (bf16 random
      weights made on the card from a seed, once) serves 8 requests of 128
      new tokens through the paged engine and then through the contiguous
@@ -71,7 +77,13 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      only) with tokens equal to the unbounded serve's, no swap-out denied
      and no timer deepened, and at half the peak with timers deepened and
      swap-outs denied, every request completing; kernel 1 launched every
-     step in both.  ``Engine.generate`` then runs the
+     step in both.  The contiguous engine serves the requests again with
+     an int8 host offload (``kv_quant="int8"``): async, ``--no-async``,
+     and async under a budget of half the async serve's stash peak;
+     kernels 2 and 3 launched every step, every offloaded page-layer
+     stored as a 131,072 B int8 payload, identical tokens in the two
+     unbounded arms, offloads denied under the budget with every request
+     served.  ``Engine.generate`` then runs the
      paper's Table-1 protocol (14-token prompt, 500 new tokens) with
      freeze off and on, ``launch/bench_async.py`` its smoke trace on
      the card (sync vs async paged engine, tiny model), and
@@ -796,11 +808,11 @@ def _quant_run(torch, K, launcher, engine_mod, cfg_mod, cfg, params, prompts,
         savings=max(g[0] for g in gauges))
 
 
-def _payload_gap(a, b, mode):
+def _payload_gap(a, b, mode, max_diff=0.01):
     """Port payloads of two devices, in the same order: the count of bytes
-    that differ, checked to be at most one quantization step apart and
-    under 1% of all, and the largest relative gap of their scales, checked
-    to be under 1e-3.  The card's and the CPU's f32 K/V are not bitwise
+    that differ, checked to be at most one quantization step apart and at
+    most ``max_diff`` of all, and the largest relative gap of their
+    scales, checked to be under 1e-3.  The card's and the CPU's f32 K/V are not bitwise
     equal: this model's attention scores reach ~4e3, so rounding in the
     first layer's prefill attention grows through the second."""
     from repro_torch.core import quant
@@ -815,7 +827,8 @@ def _payload_gap(a, b, mode):
         n_diff += int((pa.view(np.uint8) != pb.view(np.uint8)).sum())
         n_all += pa.size
         scale_gap = max(scale_gap, float(np.max(np.abs(sa - sb) / sb)))
-    assert n_diff <= 0.01 * n_all and scale_gap <= 1e-3, (n_diff, scale_gap)
+    assert n_diff <= max_diff * n_all and scale_gap <= 1e-3, (n_diff,
+                                                               scale_gap)
     return n_diff, n_all, scale_gap
 
 
@@ -1017,6 +1030,146 @@ def phase_ladder_reference(K, launcher, MD, engine_mod, cfg_mod):
                f"{free[LADDER_DEVICES[0]]['peak']} B, "
                f"{free[LADDER_DEVICES[0]]['calls'][-1][5]} remap-only thaws)"
                if budget is None else ""))
+
+
+# card-vs-CPU traces of the contiguous engine's quantized host offload:
+# tests/test_torch_contiguous_quant.py's trace (the tiny config at f32 with
+# these freeze settings, seed-0 weights and prompts, greedy), unbounded and
+# at a budget of half the unbounded peak, and the end counters that test
+# pins for it (port and reference on the CPU): kv_quant -> (n_offloads,
+# n_restores, peak_stash_bytes) unbounded, and (n_offloads, n_restores,
+# n_denied_offloads, peak_stash_bytes) under the budget
+CONTIGUOUS_QUANT_TRACE = dict(
+    freeze=dict(page_size=8, window=4, recovery_enabled=False,
+                tau_mode="quantile", quantile=0.6, k_soft=1.0),
+    prompts=(40, 30, 24), n_toks=(80, 90, 80),
+    serving=dict(max_seq=128, n_lanes=2))
+CONTIGUOUS_QUANT_EXPECTED = {
+    "int8": ((96, 94, 8192), (72, 71, 25, 4096)),
+    "fp8": ((87, 87, 8192), (67, 64, 38, 4096)),
+}
+# the share of the card's payload bytes that may differ from the CPU's,
+# one quantization step apart at most: the card's and the CPU's f32 K/V
+# are not bitwise equal (cuBLAS and the CPU round differently; see
+# _payload_gap), so a value on a rounding boundary lands one step apart.
+# The first reading on an H100 found at most 11 of 215,040 bytes (0.005%);
+# the limit is 0.1%, room for other rounding at the same boundaries
+CONTIGUOUS_QUANT_MAX_DIFF = 0.001
+
+
+def _contiguous_quant_run(kernels, launcher, engine_mod, cfg_mod, cfg,
+                          params, prompts, dev, is_async, mode, budget):
+    """One arm of the quantized contiguous trace: its tokens, the offload
+    counters and stash gauges after every engine call (with the stash
+    byte invariant checked), and the payload and scales of every page it
+    quantized, in order."""
+    from repro_torch.core import quant
+    spec = CONTIGUOUS_QUANT_TRACE
+    sv = cfg_mod.ServingConfig(**spec["serving"], async_pipeline=is_async,
+                               kv_quant=mode, stash_budget_bytes=budget)
+    eng = engine_mod.ContinuousEngine(cfg, params, sv, device=dev)
+    reqs = [engine_mod.Request(u, p, n, engine_mod.SamplingParams.greedy())
+            for u, (p, n) in enumerate(zip(prompts, spec["n_toks"]))]
+    payloads, calls = [], []
+    orig_q, orig_step = quant.quantize_page, eng.step_once
+    off = eng.offloader
+
+    def record_q(page, m, scales=None):
+        out = orig_q(page, m, scales)
+        payloads.append((out[0].copy(), out[1].copy()))
+        return out
+
+    def record_step():
+        out = orig_step()
+        assert off.stash_bytes == sum(k.nbytes + v.nbytes
+                                      for k, v in off.store.values())
+        calls.append((off.n_offloads, off.n_restores, off.n_denied_offloads,
+                      off.stash_bytes, eng.peak_stash_bytes, eng.wall_step))
+        return out
+
+    _reset_counts(kernels)
+    quant.quantize_page, eng.step_once = record_q, record_step
+    try:
+        launcher.serve_fifo(eng, reqs)
+    finally:
+        quant.quantize_page = orig_q
+        eng.step_once = orig_step
+    assert all(r.status == "completed" and len(r.result) == r.n_tokens
+               for r in reqs)
+    return dict(tokens=[r.result for r in reqs], calls=calls,
+                steps=eng.wall_step, launched=_read_counts(kernels),
+                payloads=payloads, robust=eng.robust_snapshot())
+
+
+def phase_contiguous_quant_reference(kernels, launcher, MD, engine_mod,
+                                     cfg_mod):
+    """The contiguous engine's int8 and fp8 host offload on the tiny f32
+    model, greedy, on the card (kernels 2 and 3) async and sync and on the
+    CPU (plain versions) sync and async, unbounded and at half the
+    unbounded peak: tokens equal in every arm; offload counters, stash
+    bytes and peak equal call for call between card and CPU in each
+    pipeline arm, and at the end equal to what the reference gives on the
+    CPU; the card's payloads identical between its arms and within one
+    quantization step of the CPU's."""
+    from repro_torch.configs import get_config
+    spec = CONTIGUOUS_QUANT_TRACE
+    cfg = get_config("llama3-8b-tiny")
+    cfg = dataclasses.replace(cfg, dtype="float32", freeze=dataclasses.
+                              replace(cfg.freeze, **spec["freeze"]))
+    params_cpu = MD.init_params(cfg, SEED, "cpu")
+    params = {"cpu": params_cpu, "cuda": _to_device(params_cpu, "cuda")}
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in spec["prompts"]]
+    for mode in ("int8", "fp8"):
+        free, bounded = CONTIGUOUS_QUANT_EXPECTED[mode]
+        for budget, want in ((None, free[:2] + (0,) + free[2:]),
+                             (free[2] // 2, bounded)):
+            runs = {arm: _contiguous_quant_run(
+                kernels, launcher, engine_mod, cfg_mod, cfg, params[dev],
+                prompts, dev, is_async, mode, budget)
+                for arm, dev, is_async in QUANT_ARMS}
+            ga, gs, cs, ca = (runs[a] for a, _, _ in QUANT_ARMS)
+            label = f"{mode} budget {budget}"
+            for arm, r in runs.items():
+                for u, (a, b) in enumerate(zip(r["tokens"], cs["tokens"])):
+                    i = _first_divergence(a, b)
+                    assert i is None, (f"contiguous quant {label} request "
+                                       f"{u}: {arm} and CPU sync tokens "
+                                       f"diverge at {i}")
+                end = r["calls"][-1]
+                assert end[:3] + end[4:5] == want, (label, arm, end, want)
+            assert gs["calls"] == cs["calls"], (label, "sync calls")
+            assert ga["calls"] == ca["calls"], (label, "async calls")
+            assert ga["robust"] == ca["robust"], (label, ga["robust"])
+            for r in (ga, gs):
+                n = r["steps"] * cfg.num_layers
+                for k in ("freeze_decode_attention",
+                          "relevance_freeze_update"):
+                    assert r["launched"][k] == n, (label, r["launched"], n)
+                assert r["launched"]["paged_decode_attention"] == 0
+            assert not any(cs["launched"].values()), cs["launched"]
+            key = lambda p: (p[0].tobytes(), p[1].tobytes())
+            assert sorted(map(key, ga["payloads"])) == \
+                sorted(map(key, gs["payloads"])), (label, "card arms")
+            gap_s = _payload_gap(gs["payloads"], cs["payloads"], mode,
+                                 CONTIGUOUS_QUANT_MAX_DIFF)
+            gap_a = _payload_gap(ga["payloads"], ca["payloads"], mode,
+                                 CONTIGUOUS_QUANT_MAX_DIFF)
+            end = cs["calls"][-1]
+            log(f"reference contiguous quant {label}: tiny f32 greedy, 3 "
+                f"requests: card async == card sync == CPU sync == CPU "
+                f"async tokens; offloads {end[0]} out / {end[1]} restored, "
+                f"{end[2]} denied, peak stash {end[4]} B (the reference's "
+                f"CPU numbers), counters and stash bytes equal card vs CPU "
+                f"over {len(gs['calls'])} sync and {len(ga['calls'])} async "
+                f"calls; {len(cs['payloads'])} K or V payloads: card async "
+                f"== card sync byte for byte; card vs CPU {gap_s[0]} (sync) "
+                f"and {gap_a[0]} (async) of {gap_s[1]} payload bytes one "
+                f"step apart, scales within {max(gap_s[2], gap_a[2]):.2e}; "
+                f"kernels 2 and 3: {gs['launched']['freeze_decode_attention']}"
+                f" launches each (= {gs['steps']} steps x {cfg.num_layers}, "
+                f"sync)")
 
 
 def _to_device(tree, dev):
@@ -1321,7 +1474,87 @@ def phase_contiguous_main_path(torch, kernels, launcher, engine_mod,
         del engine
         torch.cuda.empty_cache()
     _same_tokens(arms, "contiguous")
-    return arms[MAIN_ARMS[0][0]]["counts"]
+    return arms
+
+
+# bytes an int8 offloaded page-layer holds on the host: 64 slots x 8 kv
+# heads x 128 x 1 B, for each of K and V (the bf16 page's 262,144 B / 2)
+INT8_PAGE_BYTES = 2 * 64 * 8 * 128
+
+
+def phase_contiguous_quant_main_path(torch, kernels, launcher, engine_mod,
+                                     cfg_mod, params, card_line, base):
+    """The contiguous path with an int8 host offload: ContinuousEngine at
+    full width on the main path's 8 requests, async (default), --no-async,
+    and async with ``stash_budget_bytes`` at half the async serve's
+    ``peak_stash_bytes``.  Kernels 2 and 3 launched every step of every
+    serve and kernel 1 never; pages offloaded, each stored as a 131,072 B
+    int8 payload, ``stash_bytes`` the store's bytes after every call;
+    tokens identical between the async and --no-async arms; under the
+    budget offloads denied and every request served.  Tokens equal to the
+    unquantized serve's (``base``) are printed, not asserted.  Returns each
+    serve's launch counts."""
+    cfg = _full_width_config(launcher)
+    arms, launched, peak = {}, {name: [] for name in kernels}, None
+    serves = [(label, is_async, False) for label, is_async in MAIN_ARMS]
+    for label, is_async, bounded in serves + [("async, half peak", True,
+                                               True)]:
+        budget = peak // 2 if bounded else None
+        sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, seed=SEED,
+                                   async_pipeline=is_async, kv_quant="int8",
+                                   stash_budget_bytes=budget)
+        engine = engine_mod.ContinuousEngine(cfg, params, sv, device="cuda")
+        off, orig = engine.offloader, engine.step_once
+        pages = [0]
+
+        def checked():
+            out = orig()
+            assert all(k.dtype == v.dtype == np.int8
+                       and k.nbytes + v.nbytes == INT8_PAGE_BYTES
+                       for k, v in off.store.values())
+            assert off.stash_bytes == INT8_PAGE_BYTES * len(off.store)
+            pages[0] = max(pages[0], len(off.store))
+            return out
+
+        engine.step_once = checked
+        done, counts, timing, steps = _serve_main(torch, launcher, engine_mod,
+                                                  cfg, engine, kernels)
+        engine.step_once = orig
+        for name in ("freeze_decode_attention", "relevance_freeze_update"):
+            assert counts[name] == steps * cfg.num_layers, (name, counts,
+                                                            steps)
+        assert counts["paged_decode_attention"] == 0, counts
+        assert off.n_offloads > 0, off.n_offloads
+        assert engine.peak_stash_bytes == INT8_PAGE_BYTES * pages[0] > 0
+        if bounded:
+            assert off.n_denied_offloads > 0, off.n_denied_offloads
+            assert engine.peak_stash_bytes <= budget
+        else:
+            assert off.n_denied_offloads == 0
+        if peak is None:
+            peak = engine.peak_stash_bytes
+        unquantized = base[MAIN_ARMS[0 if is_async else 1][0]]["tokens"]
+        same = sum(int(np.sum(r.result == unquantized[r.uid])) for r in done)
+        log(f"main path contiguous int8 {label} [{card_line}], no profiler: "
+            f"budget {budget} B; {steps} decode steps, "
+            f"{counts['freeze_decode_attention']} masked-attention and "
+            f"{counts['relevance_freeze_update']} freeze-update launches "
+            f"(each = steps x 32); {timing}; offloads {off.n_offloads} out / "
+            f"{off.n_restores} restored, {off.n_denied_offloads} denied, "
+            f"{off.moved_bytes} bytes moved; peak_stash_bytes "
+            f"{engine.peak_stash_bytes} ({pages[0]} pages x "
+            f"{INT8_PAGE_BYTES} B); {same} of 1024 tokens equal to the "
+            f"unquantized serve's ({'async' if is_async else 'sync'}, same "
+            f"sampling seeds)")
+        if not bounded:
+            arms[label] = dict(tokens={r.uid: r.result for r in done},
+                               blocked=engine.stats.host_blocked_fraction)
+        for name, n in counts.items():
+            launched[name].append(n)
+        del engine
+        torch.cuda.empty_cache()
+    _same_tokens(arms, "contiguous int8")
+    return launched
 
 
 def phase_table1(torch, kernels, launcher, engine_mod, params, card_line):
@@ -1812,6 +2045,8 @@ def main() -> int:
                                cfg_mod)
     phase_quant_reference(torch, K, launcher, MD, engine_mod, cfg_mod)
     phase_ladder_reference(K, launcher, MD, engine_mod, cfg_mod)
+    phase_contiguous_quant_reference(kernels, launcher, MD, engine_mod,
+                                     cfg_mod)
     cfg = _full_width_config(launcher)
     t0 = time.perf_counter()
     params = MD.init_params(cfg, SEED, "cuda")
@@ -1826,8 +2061,13 @@ def main() -> int:
     ladder_launches = phase_ladder_main_path(torch, kernels, launcher,
                                              engine_mod, cfg_mod, params,
                                              card_line, paged)
-    counts = phase_contiguous_main_path(torch, kernels, launcher, engine_mod,
-                                        cfg_mod, params, card_line)
+    contiguous = phase_contiguous_main_path(torch, kernels, launcher,
+                                            engine_mod, cfg_mod, params,
+                                            card_line)
+    counts = contiguous[MAIN_ARMS[0][0]]["counts"]
+    quant_launches = phase_contiguous_quant_main_path(
+        torch, kernels, launcher, engine_mod, cfg_mod, params, card_line,
+        contiguous)
     phase_table1(torch, kernels, launcher, engine_mod, params, card_line)
     del params
     torch.cuda.empty_cache()
@@ -1859,13 +2099,15 @@ def main() -> int:
         dict(name="freeze_decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/freeze_decode_attn.cu",
              replaces="src/repro/kernels/freeze_decode_attn.py:93",
-             launches=counts["freeze_decode_attention"], max_abs_err=err2,
-             **k2),
+             launches=counts["freeze_decode_attention"],
+             launches_int8_serves=quant_launches["freeze_decode_attention"],
+             max_abs_err=err2, **k2),
         dict(name="relevance_freeze_update", route="cuda",
              source="src/repro_torch/kernels/csrc/relevance_freeze.cu",
              replaces="src/repro/kernels/relevance_freeze.py:66",
-             launches=counts["relevance_freeze_update"], max_abs_err=0.0,
-             **k3),
+             launches=counts["relevance_freeze_update"],
+             launches_int8_serves=quant_launches["relevance_freeze_update"],
+             max_abs_err=0.0, **k3),
     ]
     kernels_line = {"kernels": rows}
     with open(OUT_DIR / "chip_smoke.json", "w") as f:

@@ -1,5 +1,5 @@
 """Contiguous KV cache and its host offload (PyTorch counterpart of
-``repro.core.cache``, ``kv_quant="none"`` only).
+``repro.core.cache``).
 
 The contiguous layout keeps (L, B, S_max, KVH, hd) buffers with a freeze
 mask: every slot is addressable and frozen ones are excluded from
@@ -13,7 +13,13 @@ sync, this port moves only the pages whose state changes and updates the
 device cache IN PLACE.  The cache, the store, ``offloaded``, the counters
 and ``stash_bytes`` come out the same; ``moved_bytes`` counts the bytes
 that really crossed (host copies of offloaded pages, uploads of restored
-ones).  Quantized stashes (``kv_quant`` int8/fp8) are not ported yet.
+ones).
+
+Under ``kv_quant`` "int8" or "fp8" each offloaded page is stored as its
+1-byte payload with per-kv-head scales (``core.quant``); ``stash_bytes``
+and the budget count the payload.  Quantization and the dequantization of
+a restore run on the host, and a restored page is written back rounded to
+the cache dtype, as the reference's host array does.
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import from_host, host_view
+from repro_torch.core import quant
+from repro_torch.device import from_host, host_values, host_view
 
 
 class KVCache(NamedTuple):
@@ -67,10 +74,12 @@ class HostOffloadController:
     """Page-granular host residency of fully frozen KV (module docstring).
 
     Store keys are (layer, lane, page); values are host copies of the
-    page's K and V (bf16 pages as int16 views of their bytes).  With the
-    stash at or over ``stash_budget_bytes`` newly fully-frozen pages stay
-    on the device (the freeze mask already excludes them from attention)
-    and are counted in ``n_denied_offloads``; restores are never denied."""
+    page's K and V (bf16 pages as int16 views of their bytes), or under a
+    quant mode their 1-byte payloads, with the scales in ``quant_scales``.
+    A page whose stored bytes would take the stash past
+    ``stash_budget_bytes`` stays on the device (the freeze mask already
+    excludes it from attention) and is counted in ``n_denied_offloads``;
+    restores are never denied."""
     page_size: int
     store: Dict[Tuple[int, int, int], Tuple[np.ndarray, np.ndarray]] = \
         dataclasses.field(default_factory=dict)
@@ -81,13 +90,13 @@ class HostOffloadController:
     stash_budget_bytes: Optional[int] = None
     n_denied_offloads: int = 0
     kv_quant: str = "none"
+    quant_scales: Dict[Tuple[int, int, int],
+                       Tuple[np.ndarray, np.ndarray]] = \
+        dataclasses.field(default_factory=dict)
     moved_bytes: int = 0       # host<->device bytes the syncs really moved
 
     def __post_init__(self):
-        if self.kv_quant != "none":
-            raise NotImplementedError(
-                f"kv_quant={self.kv_quant!r}: the port's host offload keeps "
-                f"unquantized pages only so far")
+        quant.resolve_mode(self.kv_quant)
 
     @property
     def stash_pressure(self) -> float:
@@ -124,6 +133,7 @@ class HostOffloadController:
         thawed, IN PLACE on ``cache``; returns it."""
         pg = self.page_size
         all_frozen = self._all_frozen(frozen, reduced)
+        mode = quant.MODES[self.kv_quant]
         for (l, b, p) in zip(*np.nonzero(all_frozen)):
             key = (int(l), int(b), int(p))
             if key in self.offloaded:
@@ -132,16 +142,28 @@ class HostOffloadController:
             k_dev, v_dev = cache.k[key[0], key[1], sl], cache.v[key[0],
                                                                 key[1], sl]
             nbytes = k_dev.nbytes + v_dev.nbytes
+            if mode:
+                # quantize first: the budget counts the 1-byte payload
+                kk, ks = quant.quantize_page(
+                    host_values(host_view(k_dev), cache.k.dtype), mode)
+                vv, vs = quant.quantize_page(
+                    host_values(host_view(v_dev), cache.v.dtype), mode)
+                stored = kk.nbytes + vv.nbytes
+            else:
+                stored = nbytes
             if self.stash_budget_bytes is not None and \
-                    self.stash_bytes + nbytes > self.stash_budget_bytes:
+                    self.stash_bytes + stored > self.stash_budget_bytes:
                 self.n_denied_offloads += 1
                 continue       # page stays resident (and frozen)
-            # copies: on a CPU tensor host_view shares the tensor's memory,
-            # which is zeroed below
-            kk, vv = host_view(k_dev).copy(), host_view(v_dev).copy()
+            if mode:
+                self.quant_scales[key] = (ks, vs)
+            else:
+                # copies: on a CPU tensor host_view shares the tensor's
+                # memory, which is zeroed below
+                kk, vv = host_view(k_dev).copy(), host_view(v_dev).copy()
             self.moved_bytes += nbytes
             self.store[key] = (kk, vv)
-            self.stash_bytes += nbytes
+            self.stash_bytes += stored
             self.offloaded.add(key)
             self.n_offloads += 1
             cache.k[key[0], key[1], sl] = 0             # model slot release
@@ -152,10 +174,17 @@ class HostOffloadController:
                 continue
             kk, vv = self.store.pop(key)
             self.stash_bytes -= kk.nbytes + vv.nbytes
+            qm = self.quant_scales.pop(key, None)
+            if qm is not None:
+                # f32 values, rounded to the cache dtype by from_host
+                kk = quant.dequantize_page(kk, qm[0])
+                vv = quant.dequantize_page(vv, qm[1])
             sl = slice(p * pg, (p + 1) * pg)
-            cache.k[l, b, sl] = from_host(kk, cache.k.dtype, cache.k.device)
-            cache.v[l, b, sl] = from_host(vv, cache.v.dtype, cache.v.device)
-            self.moved_bytes += kk.nbytes + vv.nbytes
+            k_new = from_host(kk, cache.k.dtype, cache.k.device)
+            v_new = from_host(vv, cache.v.dtype, cache.v.device)
+            cache.k[l, b, sl] = k_new
+            cache.v[l, b, sl] = v_new
+            self.moved_bytes += k_new.nbytes + v_new.nbytes
             self.offloaded.discard(key)
             self.n_restores += 1
         return cache
@@ -177,5 +206,6 @@ class HostOffloadController:
             kv = self.store.pop(key, None)
             if kv is not None:
                 self.stash_bytes -= kv[0].nbytes + kv[1].nbytes
+            self.quant_scales.pop(key, None)
             self.offloaded.discard(key)
         return len(stale)

@@ -11,8 +11,9 @@ Device pools keep one dtype: a quantized page holds its payload *values*
 widened into the pool dtype (exact in bf16 and f32: int8 payloads are
 integers of magnitude <= 127, e4m3 values have 3 mantissa bits), and the
 kernel multiplies by the scales where the page's flag is set.  The paged
-engine serves ``kv_quant`` "int8" and "fp8"; the contiguous engine does not
-quantize.
+engine serves ``kv_quant`` "int8" and "fp8" that way; the contiguous
+engine's host offload keeps the 1-byte payloads in its store and
+dequantizes a page on the host when it is restored.
 """
 from __future__ import annotations
 

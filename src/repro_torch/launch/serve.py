@@ -18,6 +18,8 @@ engines, on the card unless ``--device cpu`` is given:
         --device cpu --no-async
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged \
         --device cpu --kv-quant int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
+        --kv-quant fp8
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged \
         --device cpu --stash-budget-mb 0.25
 
@@ -25,10 +27,14 @@ Both continuous engines run the async DMA pipeline by default (the
 per-step fetch is consumed one call later; on ``--paged`` likely thaws are
 staged into spare device slots); ``--no-async`` is the synchronous
 baseline with the same decisions and tokens.  ``--kv-quant int8|fp8``
-(``--paged`` only) quantizes frozen and stashed pages to a 1-byte payload
-with per-page, per-kv-head scales, dequantized by the attention kernel; the
-device pool keeps its dtype, so the ``kv-quant`` line's savings and the
-dma byte gauges are the reference's model of packed pages.
+quantizes pages to a 1-byte payload with per-page, per-kv-head scales: on
+``--paged`` the frozen and stashed pages, dequantized by the attention
+kernel (the device pool keeps its dtype, so the ``kv-quant`` line's
+savings and the dma byte gauges are the reference's model of packed
+pages); in the default mode the host offload's stash, dequantized on the
+host when a page is restored (the ``host offload`` line's stash bytes are
+the payload's).  ``--static`` accepts the flag and ignores it, as the
+reference launcher does.
 ``--stash-budget-mb`` bounds the host stash: the engine's ladder rungs
 engage as stash pressure rises, and a ``chaos: ... ladder: ...`` line
 reports their counters and the stash peak against the budget.
@@ -206,11 +212,12 @@ def main(argv=None):
     ap.add_argument("--kv-quant", default="none",
                     choices=("none", "int8", "fp8"),
                     help="lossy per-page quantization of frozen/stashed KV "
-                         "pages on --paged: the device pool's frozen pages "
-                         "and the host stash hold a 1-byte payload with "
-                         "per-page per-kv-head scales, dequantized in the "
-                         "attention kernel; 'none' is the unquantized "
-                         "engine")
+                         "pages: a 1-byte payload with per-page per-kv-head "
+                         "scales, in the device pool's frozen pages and the "
+                         "host stash on --paged (dequantized in the "
+                         "attention kernel) and in the host offload's stash "
+                         "otherwise (dequantized on restore); 'none' is the "
+                         "unquantized engine")
     ap.add_argument("--stash-budget-mb", type=float, default=None,
                     help="host-stash memory budget (MiB); engages the "
                          "degradation ladder's engine rungs as stash "
@@ -222,9 +229,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.static and args.paged:
         ap.error("--static and --paged are two different engines")
-    if args.kv_quant != "none" and not args.paged:
-        ap.error("--kv-quant quantizes the paged engine's pages: it needs "
-                 "--paged")
 
     device = resolve_device(args.device)
     cfg = launcher_config(args.arch, args.tiny, args.quantile_tau,

@@ -13,11 +13,11 @@ None).  The port has no legacy keyword surface.  The defaults are the
 reference's: the async DMA pipeline (``async_pipeline=True``) with
 speculative thaw staging following it (``speculative_thaw=None``) into
 ``speculative_slots`` staging slots a lane on the paged engine.
-``kv_quant`` ("none", "int8" or "fp8") is validated here; the paged engine
-serves every mode and the contiguous one only "none".  ``stash_budget_bytes``
-bounds the host stash and ``ladder`` (an ``engine.LadderConfig``, None for
-its defaults) sets the degradation ladder's thresholds; the engines apply
-its rungs 1-2 themselves.  Chaos injection is not ported and raises at
+``kv_quant`` ("none", "int8" or "fp8") is validated here; both continuous
+engines serve every mode (the contiguous one in its host offload).
+``stash_budget_bytes`` bounds the host stash and ``ladder`` (an
+``engine.LadderConfig``, None for its defaults) sets the degradation
+ladder's thresholds; the engines apply its rungs 1-2 themselves.  Chaos injection is not ported and raises at
 construction.
 """
 from __future__ import annotations

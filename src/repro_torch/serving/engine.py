@@ -7,7 +7,8 @@ of ``repro.serving.engine``).
   per-lane ``pos``/``step`` clocks, admission into a free lane mid-stream
   by a single-lane prefill copied over the lane's slice (which resets its
   KV, freeze and recovery state wholesale), and page-granular host offload
-  of fully frozen KV (``core.cache.HostOffloadController``).
+  of fully frozen KV (``core.cache.HostOffloadController``), quantized to a
+  1-byte payload under ``kv_quant`` "int8" or "fp8".
 * ``PagedContinuousEngine`` — continuous batching whose decode attends
   only each lane's bounded page pool: device KV is O(P * page) per lane,
   frozen and overflow pages live in the host store
@@ -559,11 +560,7 @@ class ContinuousEngine(_LaneEngineBase):
                  device=None):
         super().__init__(cfg, params, serving, device)
         sv = serving
-        if sv.kv_quant != "none":
-            raise NotImplementedError(
-                f"kv_quant={sv.kv_quant!r}: the contiguous engine's "
-                f"quantized host offload is not ported; the paged engine "
-                f"serves quantized pages")
+        self.kv_quant = sv.kv_quant
         self.max_rewinds = sv.max_rewinds
         self.rewind_cooldown = sv.rewind_cooldown
         # kept for construction parity with the reference: offload timing

@@ -251,6 +251,56 @@ def test_tiny_quantized_paged_engine_matches_cpu(card, kv_quant):
     assert runs[1] == runs[0] and runs[2] == runs[0]
 
 
+# tests/test_torch_contiguous_quant.py's trace and its pinned end counters:
+# (n_offloads, n_restores, n_denied_offloads, peak_stash_bytes) unbounded
+# and at a 4096-byte budget
+CONTIGUOUS_QUANT_EXPECTED = {
+    ("int8", None): (96, 94, 0, 8192), ("int8", 4096): (72, 71, 25, 4096),
+    ("fp8", None): (87, 87, 0, 8192), ("fp8", 4096): (67, 64, 38, 4096)}
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
+def test_tiny_quantized_contiguous_engine_matches_cpu(card, kv_quant):
+    """The tiny model at f32, greedy, through the contiguous engine with a
+    quantized host offload, unbounded and under a stash budget: the card's
+    async and sync arms give the CPU sync arm's tokens and offload
+    counters, which are the ones the reference gives on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_fifo
+    from repro_torch.models import model as MD
+    from repro_torch.serving.config import ServingConfig
+    from repro_torch.serving.engine import ContinuousEngine, Request
+    from repro_torch.serving.sampling import SamplingParams
+    cfg = get_config("llama3-8b-tiny")
+    cfg = dataclasses.replace(cfg, dtype="float32", freeze=dataclasses.
+                              replace(cfg.freeze, page_size=8, window=4,
+                                      recovery_enabled=False,
+                                      tau_mode="quantile", quantile=0.6,
+                                      k_soft=1.0))
+    params = MD.init_params(cfg, 0, "cpu")
+    rng = np.random.RandomState(0)
+    lens = ((40, 80), (30, 90), (24, 80))
+    prompts = [rng.randint(0, cfg.vocab_size, size=pl).astype(np.int32)
+               for pl, _ in lens]
+    for budget in (None, 4096):
+        runs = []
+        for dev, is_async in (("cpu", False), (card, False), (card, True)):
+            sv = ServingConfig(max_seq=128, n_lanes=2, kv_quant=kv_quant,
+                               async_pipeline=is_async,
+                               stash_budget_bytes=budget)
+            eng = ContinuousEngine(cfg, _to(params, dev), sv, device=dev)
+            reqs = [Request(u, p, n, SamplingParams.greedy())
+                    for u, (p, (_, n)) in enumerate(zip(prompts, lens))]
+            serve_fifo(eng, reqs)
+            off = eng.offloader
+            runs.append(([r.result.tolist() for r in reqs],
+                         (off.n_offloads, off.n_restores,
+                          off.n_denied_offloads, eng.peak_stash_bytes)))
+        assert runs[0][1] == CONTIGUOUS_QUANT_EXPECTED[kv_quant, budget]
+        assert runs[1] == runs[0] and runs[2] == runs[0], budget
+
+
 def test_tiny_async_engines_match_sync_on_the_card(card):
     """The tiny model at f32, greedy, through both engines on the card:
     the async arm (ring on a side stream, staging uploads on another) gives

@@ -64,17 +64,20 @@ def test_unported_serving_options_raise(field, value):
                       **{field: value})
 
 
-def test_contiguous_engine_rejects_kv_quant():
-    """Quantized pages are served by the paged engine only: the contiguous
-    engine's quantized host offload is not ported."""
+@pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
+def test_contiguous_engine_accepts_kv_quant(kv_quant):
+    """The contiguous engine hands ``kv_quant`` to its host offload, and
+    the launcher serves it in the default mode and ignores it with
+    ``--static`` (as the reference launcher does)."""
     cfg = get_config("llama3-8b-tiny")
     params = MD.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        ContinuousEngine(cfg, params, ServingConfig(max_seq=64, n_lanes=1,
-                                                    kv_quant="int8"),
-                         device="cpu")
-    with pytest.raises(SystemExit):
-        serve.main(["--tiny", "--device", "cpu", "--kv-quant", "int8"])
+    eng = ContinuousEngine(cfg, params, ServingConfig(
+        max_seq=64, n_lanes=1, kv_quant=kv_quant), device="cpu")
+    assert eng.kv_quant == eng.offloader.kv_quant == kv_quant
+    small = ["--tiny", "--device", "cpu", "--requests", "2", "--tokens",
+             "8", "--kv-quant", kv_quant]
+    serve.main(small)
+    serve.main(small + ["--static"])
 
 
 @pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
