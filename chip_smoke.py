@@ -56,7 +56,12 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      CPU sync and async: tokens equal, offload counters and stash bytes
      equal call for call card vs CPU and at the end equal to the
      reference's (pinned in that test), payloads identical between the
-     card's arms and within one quantization step of the CPU's;
+     card's arms and within one quantization step of the CPU's; the lane
+     lifecycle (``serving/lifecycle_cases.py``: a suspension resumed in
+     another lane, an ``admit_over`` preemption, cancellations and a
+     discarded snapshot) on the card and the CPU in lockstep, async and
+     sync: gauges, tokens, events and snapshots equal after every call,
+     at the end counts tests/test_torch_lifecycle.py pins;
   5. main paths — llama3-8b at full published width and depth (bf16 random
      weights made on the card from a seed, once) serves 8 requests of 128
      new tokens through the paged engine and then through the contiguous
@@ -83,7 +88,16 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      kernels 2 and 3 launched every step, every offloaded page-layer
      stored as a 131,072 B int8 payload, identical tokens in the two
      unbounded arms, offloads denied under the budget with every request
-     served.  ``Engine.generate`` then runs the
+     served.  The lane lifecycle at full width, async: the paged engine
+     serves the requests with a suspension at step 40 resumed into the
+     next lane that frees, one ``admit_over`` install and a cancellation
+     at step 100 (the suspended and preempted victims' tokens equal to
+     the main serve's, the cancelled request's a prefix of them,
+     ``exported_bytes`` back to 0, kernel 1 every step), and the
+     contiguous engine with a suspension and its re-prefill resume (every
+     request complete, the prefix kept, kernels 2 and 3 every step);
+     suspend and resume host times and snapshot bytes are printed.
+     ``Engine.generate`` then runs the
      paper's Table-1 protocol (14-token prompt, 500 new tokens) with
      freeze off and on, ``launch/bench_async.py`` its smoke trace on
      the card (sync vs async paged engine, tiny model), and
@@ -1172,6 +1186,70 @@ def phase_contiguous_quant_reference(kernels, launcher, MD, engine_mod,
                 f"sync)")
 
 
+# tests/test_torch_lifecycle.py's pinned end of lifecycle_cases' traces
+# (the port and the reference on the CPU, the port's seed-0 weights): trace
+# -> (decode steps, (swap-outs, swap-ins), the most bytes exported, uid ->
+# (status, tokens, token sum)), and the engine calls by pipeline arm
+LIFECYCLE_EXPECTED = {
+    "a": ((38, (20, 12), 16384,
+           {1: ("completed", 32, 7095), 2: ("completed", 8, 2417)}),
+          {"sync": 48, "async": 50}),
+    "e": ((38, (20, 12), 16384,
+           {1: ("completed", 32, 9131), 2: ("completed", 8, 2600)}),
+          {"sync": 46, "async": 48}),
+    "g": ((28, (30, 16), 49152,
+           {1: ("cancelled", 17, 4037), 2: ("cancelled", 20, 5699),
+            3: ("pending",), 4: ("cancelled", 0, 0),
+            5: ("completed", 8, 1949)}),
+          {"sync": 43, "async": 44}),
+}
+
+
+def phase_lifecycle_reference(K, MD, engine_mod, cfg_mod):
+    """The lane lifecycle on the tiny f32 model, greedy: traces a (suspend,
+    filler, resume into the other lane), e (``admit_over``) and g (cancel
+    and discard) of ``serving/lifecycle_cases.py`` on the card (kernel 1)
+    and on the CPU (plain version) in lockstep, async and sync: gauges,
+    tokens, events and snapshots equal after every call, and the end
+    counts the CPU test pins."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import lifecycle_cases as LC
+    cfg = get_config("llama3-8b-tiny")
+    cfg = dataclasses.replace(cfg, dtype="float32", freeze=dataclasses.
+                              replace(cfg.freeze, **LC.FREEZE))
+    params_cpu = MD.init_params(cfg, SEED, "cpu")
+    params = {"cpu": params_cpu, "cuda": _to_device(params_cpu, "cuda")}
+    sp = engine_mod.SamplingParams.greedy()
+    make = lambda u, p, n: engine_mod.Request(u, p, n, sp)
+    for trace in sorted(LC.TRACES):
+        (wall, swaps, exported, requests), calls = LIFECYCLE_EXPECTED[trace]
+        for arm in ("async", "sync"):
+            sv = cfg_mod.ServingConfig(**LC.SERVING[trace],
+                                       async_pipeline=arm == "async")
+            engines = [engine_mod.PagedContinuousEngine(
+                cfg, params[dev], sv, device=dev) for dev in ("cpu", "cuda")]
+            d = LC.Lockstep(engines, [make, make])
+            before = K.paged_decode_attention_cuda.launches
+            LC.TRACES[trace](d)
+            launched = K.paged_decode_attention_cuda.launches - before
+            d.results()
+            got = LC.end_counts(d)
+            want = dict(calls=calls[arm], wall_step=wall, swaps=swaps,
+                        peak_exported=exported, requests=requests)
+            assert got == want, (trace, arm, got, want)
+            assert launched == wall * cfg.num_layers, (trace, arm, launched)
+            kinds = [e["event"] for e in engines[1].events]
+            log(f"reference lifecycle {trace} {arm}: tiny f32 greedy, card "
+                f"== CPU after each of {len(d.calls)} calls (gauges, "
+                f"tokens, events, snapshots); "
+                + ", ".join(f"{k} {kinds.count(k)}" for k in
+                            ("suspend", "resume", "cancel")
+                            if kinds.count(k))
+                + f"; peak exported {exported} B; requests {requests}; "
+                f"kernel 1: {launched} launches (= {wall} steps x "
+                f"{cfg.num_layers})")
+
+
 def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
@@ -1554,6 +1632,181 @@ def phase_contiguous_quant_main_path(torch, kernels, launcher, engine_mod,
         del engine
         torch.cuda.empty_cache()
     _same_tokens(arms, "contiguous int8")
+    return launched
+
+
+def _decoding_lane(engine, skip=()):
+    """The decoding lane with the most tokens left, among requests not in
+    ``skip`` (uids); None when no lane is decoding."""
+    best = None
+    for i, l in enumerate(engine.lanes):
+        if l.request is None or l.request.uid in skip \
+                or i in getattr(engine, "prefills", {}):
+            continue
+        left = l.request.n_tokens - len(l.generated)
+        if best is None or left > best[0]:
+            best = (left, i)
+    return None if best is None else best[1]
+
+
+def _lifecycle_serve(torch, engine, reqs, paged):
+    """The main path's FIFO loop with the lane lifecycle in it: at decode
+    step 40 the decoding lane with the most tokens left is suspended and
+    resumed into the next lane that frees (snapshots go before queued
+    requests); on the paged engine, once every lane decodes from step 20
+    on, the next queued request preempts a lane (``admit_over``) whose
+    victim resumes the same way, and at step 100 one more decoding lane is
+    cancelled.  Returns (finished requests, roles by uid, host ms of each
+    suspend and resume call, snapshot byte sizes, peak exported bytes)."""
+    queue, resume, done, roles = list(reqs), [], [], {}
+    ms = {"suspend": [], "resume": []}
+    sizes, peak_exported = [], 0
+
+    def timed(kind, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        ms[kind].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def keep(snap):
+        resume.append(snap)
+        pool = sum(a.nbytes for a in (snap.pool or {}).values()) + \
+            sum(a.nbytes for a in (snap.fstate or {}).values())
+        stashed = sum(kv[0].nbytes + kv[1].nbytes
+                      for kv, *_ in (snap.stashed or {}).values())
+        sizes.append((snap.req.uid, pool, stashed))
+
+    while queue or resume or any(l.request is not None
+                                 for l in engine.lanes) \
+            or getattr(engine, "prefills", None):
+        while engine.has_free_lane and (resume or queue):
+            if resume:
+                timed("resume", engine.resume_lane, resume.pop(0))
+            else:
+                engine.admit(queue.pop(0))
+        lane = _decoding_lane(engine, roles.values())
+        if paged and "preemptor" not in roles and queue \
+                and engine.wall_step >= 20 and not engine.prefills \
+                and not engine.has_free_lane and lane is not None:
+            roles["preempted"] = engine.lanes[lane].request.uid
+            roles["preemptor"] = queue[0].uid
+            engine.admit_over(queue.pop(0), lane)
+        done += engine.step_once()
+        for snap in engine.drain_suspended():
+            keep(snap)
+        if paged:
+            peak_exported = max(peak_exported, engine.ctl.exported_bytes)
+        lane = _decoding_lane(engine, roles.values())
+        if "suspended" not in roles and engine.wall_step >= 40 \
+                and lane is not None:
+            # None: the request retired in the suspend's flush
+            snap = timed("suspend", engine.suspend_lane, lane)
+            if snap is not None:
+                roles["suspended"] = snap.req.uid
+                keep(snap)
+            if paged:
+                peak_exported = max(peak_exported, engine.ctl.exported_bytes)
+        lane = _decoding_lane(engine, roles.values())
+        if paged and "cancelled" not in roles and engine.wall_step >= 100 \
+                and lane is not None:
+            req = engine.cancel_lane(lane)
+            if req is not None:
+                roles["cancelled"] = req.uid
+    return done, roles, ms, sizes, peak_exported
+
+
+def phase_lifecycle_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
+                              params, card_line, paged, contiguous):
+    """The lane lifecycle at full width: the paged engine, async, serves the
+    main path's 8 requests with one suspension and resume, one
+    ``admit_over`` install and one cancellation (``_lifecycle_serve``):
+    the suspended and the preempted victims' tokens equal the main path's
+    own serve of the same requests, the cancelled request's tokens are a
+    prefix of it, ``exported_bytes`` returns to 0 and kernel 1 launches 32
+    times a step.  The contiguous engine, async, serves them with one
+    suspension and its re-prefill resume: every request completes, the
+    suspended one keeps its prefix, and the share of tokens equal to the
+    unsuspended serve's is printed.  Returns the kernels' launch counts
+    over both serves."""
+    cfg = _full_width_config(launcher)
+    launched = {}
+    for name, base in (("paged", paged), ("contiguous", contiguous)):
+        base = base[MAIN_ARMS[0][0]]["tokens"]
+        if name == "paged":
+            sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4,
+                                       max_active_pages=8, prefill_chunk=256,
+                                       seed=SEED, async_pipeline=True)
+            engine = engine_mod.PagedContinuousEngine(cfg, params, sv,
+                                                      device="cuda")
+        else:
+            sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, seed=SEED,
+                                       async_pipeline=True)
+            engine = engine_mod.ContinuousEngine(cfg, params, sv,
+                                                 device="cuda")
+        rng = np.random.RandomState(SEED)
+        reqs = _requests(engine_mod, cfg, rng, range(8), 128)
+        _reset_counts(kernels)
+        t0 = time.perf_counter()
+        done, roles, ms, sizes, peak_exported = _lifecycle_serve(
+            torch, engine, reqs, name == "paged")
+        seconds = time.perf_counter() - t0
+        counts = _read_counts(kernels)
+        steps = engine.wall_step
+        by_uid = {r.uid: r for r in reqs}
+        finished = {r.uid for r in done}
+        same = sum(int(np.sum(r.result == base[r.uid])) for r in done
+                   if len(r.result) == len(base[r.uid]))
+        if name == "paged":
+            assert counts["paged_decode_attention"] == \
+                steps * cfg.num_layers, (counts, steps)
+            assert counts["freeze_decode_attention"] == 0 and \
+                counts["relevance_freeze_update"] == 0, counts
+            assert finished == set(range(8)) - {roles["cancelled"]}, roles
+            for role in ("suspended", "preempted"):
+                uid = roles[role]
+                i = _first_divergence(by_uid[uid].result, base[uid])
+                assert i is None, f"lifecycle {role} request {uid}: tokens " \
+                                  f"diverge from the main serve's at {i}"
+            cut = by_uid[roles["cancelled"]]
+            assert str(cut.status) == "cancelled", cut.status
+            assert 0 < len(cut.result) < 128
+            np.testing.assert_array_equal(cut.result,
+                                          base[cut.uid][:len(cut.result)])
+            assert peak_exported > 0 and engine.ctl.exported_bytes == 0
+            assert not engine.ctl.store and not engine.ctl.frozen_meta
+            assert len(ms["suspend"]) == 1 and len(ms["resume"]) == 2, ms
+            victims = (f"suspended {roles['suspended']} and preempted "
+                       f"{roles['preempted']} tokens == the main serve's; "
+                       f"cancelled {cut.uid} after {len(cut.result)} tokens, "
+                       f"a prefix of the main serve's; preemptor "
+                       f"{roles['preemptor']}; peak exported_bytes "
+                       f"{peak_exported}, 0 at the end")
+        else:
+            for k in ("freeze_decode_attention", "relevance_freeze_update"):
+                assert counts[k] == steps * cfg.num_layers, (counts, steps)
+            assert counts["paged_decode_attention"] == 0, counts
+            assert finished == set(range(8)) and \
+                all(len(r.result) == 128 for r in done)
+            uid = roles["suspended"]
+            assert [s[0] for s in sizes] == [uid], sizes
+            ev = [e for e in engine.events if e["event"] == "suspend"]
+            snap_len = ev[0]["generated"]
+            assert snap_len > 0
+            np.testing.assert_array_equal(by_uid[uid].result[:snap_len],
+                                          base[uid][:snap_len])
+            victims = (f"suspended {uid} after {snap_len} tokens, resumed "
+                       f"by re-prefill, kept its prefix")
+        launched[name] = counts
+        log(f"main path lifecycle {name} [{card_line}], async, no profiler: "
+            f"{steps} decode steps in {seconds:.2f} s; kernel launches "
+            f"{counts}; {victims}; {same} of "
+            f"{sum(len(r.result) for r in done)} tokens equal to the main "
+            f"serve's; suspend host ms {ms['suspend']}, resume host ms "
+            f"{ms['resume']}; snapshots (uid, pool slice B, stashed B) "
+            f"{sizes}")
+        del engine
+        torch.cuda.empty_cache()
     return launched
 
 
@@ -2047,6 +2300,7 @@ def main() -> int:
     phase_ladder_reference(K, launcher, MD, engine_mod, cfg_mod)
     phase_contiguous_quant_reference(kernels, launcher, MD, engine_mod,
                                      cfg_mod)
+    phase_lifecycle_reference(K, MD, engine_mod, cfg_mod)
     cfg = _full_width_config(launcher)
     t0 = time.perf_counter()
     params = MD.init_params(cfg, SEED, "cuda")
@@ -2068,6 +2322,9 @@ def main() -> int:
     quant_launches = phase_contiguous_quant_main_path(
         torch, kernels, launcher, engine_mod, cfg_mod, params, card_line,
         contiguous)
+    lifecycle = phase_lifecycle_main_path(torch, kernels, launcher,
+                                          engine_mod, cfg_mod, params,
+                                          card_line, paged, contiguous)
     phase_table1(torch, kernels, launcher, engine_mod, params, card_line)
     del params
     torch.cuda.empty_cache()
@@ -2092,6 +2349,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/paged_decode_attn.cu",
              replaces="src/repro/kernels/paged_decode_attn.py:117",
              launches=launches, launches_ladder_serves=ladder_launches,
+             launches_lifecycle_serves=lifecycle["paged"][
+                 "paged_decode_attention"],
              max_abs_err=err, ms=ms, plain_ms=plain_ms,
              bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
              **{f"{k}_{mode}_pages": v for mode, t in quant_t.items()
@@ -2101,12 +2360,16 @@ def main() -> int:
              replaces="src/repro/kernels/freeze_decode_attn.py:93",
              launches=counts["freeze_decode_attention"],
              launches_int8_serves=quant_launches["freeze_decode_attention"],
+             launches_lifecycle_serves=lifecycle["contiguous"][
+                 "freeze_decode_attention"],
              max_abs_err=err2, **k2),
         dict(name="relevance_freeze_update", route="cuda",
              source="src/repro_torch/kernels/csrc/relevance_freeze.cu",
              replaces="src/repro/kernels/relevance_freeze.py:66",
              launches=counts["relevance_freeze_update"],
              launches_int8_serves=quant_launches["relevance_freeze_update"],
+             launches_lifecycle_serves=lifecycle["contiguous"][
+                 "relevance_freeze_update"],
              max_abs_err=0.0, **k3),
     ]
     kernels_line = {"kernels": rows}

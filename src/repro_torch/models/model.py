@@ -87,6 +87,13 @@ def reset_paged_lane(cfg: ModelConfig, state, lane):
     return T.reset_paged_lane(state, lane)
 
 
+def set_paged_lane_recovery(cfg: ModelConfig, state, lane, ema_entropy,
+                            level, calm_steps, steps_seen):
+    """Restore one lane's recovery-ladder scalars (preemption resume)."""
+    return T.set_paged_lane_recovery(state, lane, ema_entropy, level,
+                                     calm_steps, steps_seen)
+
+
 def rewind_paged_lane(cfg: ModelConfig, state, lane, new_pos, page: int):
     """Page-aware Rewalk rewind for one lane (recovery level RR)."""
     return T.rewind_paged_lane(state, lane, new_pos, page)

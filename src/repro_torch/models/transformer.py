@@ -344,6 +344,17 @@ def reset_paged_lane(state: PagedDecodeState, lane: int) -> PagedDecodeState:
     return state
 
 
+def set_paged_lane_recovery(state: PagedDecodeState, lane: int,
+                            ema_entropy: float, level: int, calm_steps: int,
+                            steps_seen: int) -> PagedDecodeState:
+    """Set one lane's recovery-ladder scalars IN PLACE (a resumed lane's
+    snapshot values; the pool slice rides the engine's push)."""
+    r = state.recovery
+    for a, v in zip(r, (ema_entropy, level, calm_steps, steps_seen)):
+        a[lane] = v
+    return state
+
+
 def rewind_paged_lane(state: PagedDecodeState, lane: int, new_pos: int,
                       page: int) -> PagedDecodeState:
     """Page-aware Rewalk rewind for ONE lane, IN PLACE: slots holding

@@ -34,6 +34,16 @@ offloads past the budget are denied) and the degradation ladder
 (``LadderConfig``) reads its pressure: the paged engine stops staging and
 frees the host copies of resident pages at rung 1, and deepens the
 offloaded freeze timers at rung 2.
+
+Both continuous engines carry the lane lifecycle a preempting scheduler
+drives: ``suspend_lane`` returns a ``LaneSnapshot`` and frees the lane,
+``resume_lane`` brings it back on any free lane (the paged engine by
+restoring the lane's pool slice and stashed pages, token-identically; the
+contiguous one by re-prefilling), ``admit_over`` (paged) suspends a busy
+lane's occupant when the preemptor's prefill installs, ``checkpoint_lane``
+(paged) snapshots a lane that keeps running, and ``cancel_lane`` /
+``cancel_request`` / ``discard_snapshot`` drop a request without leaking
+its stashed bytes.
 """
 from __future__ import annotations
 
@@ -84,12 +94,14 @@ class GenerationResult:
 
 
 class RequestStatus(str, enum.Enum):
-    """Request lifecycle status (the values this slice reaches).  A ``str``
+    """Request lifecycle status (the values the engines reach).  A ``str``
     subclass: every value equals its string (``RequestStatus.COMPLETED ==
-    "completed"``)."""
+    "completed"``).  ``CANCELLED`` is terminal for a request whose lane
+    was suspended and dropped (``cancel_lane``)."""
     PENDING = "pending"
     COMPLETED = "completed"
     QUARANTINED = "quarantined"
+    CANCELLED = "cancelled"
 
     def __str__(self) -> str:
         return self.value
@@ -105,6 +117,50 @@ class Request:
     result: Optional[np.ndarray] = None
     telemetry: Optional[GenerationResult] = None
     status: RequestStatus = RequestStatus.PENDING
+
+
+@dataclasses.dataclass
+class LaneSnapshot:
+    """Resumable mid-generation state of a preempted lane.
+
+    Made by ``suspend_lane`` (or ``checkpoint_lane``) and consumed by
+    ``resume_lane``, possibly on a different lane.  The host fields
+    (tokens, clocks, rewind budget and the lane's sampling seed, so a
+    resumed lane consumes no admission index) are common to both engines.
+    The paged engine adds the lane's whole pool slice, freeze state,
+    recovery-ladder scalars and host-stashed pages, so its resume is
+    token-identical to the uninterrupted run; the contiguous engine
+    carries no KV and resumes by re-prefilling prompt + generated tokens
+    (approximate: its freeze state restarts).
+
+    ``generated == []`` marks an admission cancelled before its first
+    token (mid chunked prefill): resume is a plain re-admit."""
+    req: Request
+    generated: List[int]
+    history: List[Tuple[int, int]]
+    pos: int
+    step: int                      # decode clock (sampling folds it in)
+    tok: int                       # next step's input token
+    rewinds: int
+    last_rewind_step: int
+    lane_seed: Optional[int] = None          # the lane's sampling base seed
+    # ---- paged payload (None on the contiguous engine) ---- #
+    pool: Optional[Dict[str, np.ndarray]] = None     # (L, 1, P_total, ...)
+    fstate: Optional[Dict[str, np.ndarray]] = None
+    recovery: Optional[Dict[str, Any]] = None        # ladder scalars
+    tail_slot: Optional[np.ndarray] = None           # (L,) int32
+    stashed: Optional[Dict[Tuple[int, int], Any]] = None  # host-store pages
+    pending_thaw: bool = False
+    urgency: float = 0.0
+    # False for ``checkpoint_lane`` snapshots: their stashed pages are
+    # shared with the live controller, so no ``exported_bytes`` moved and
+    # none moves back on resume or discard
+    exported: bool = True
+
+    @property
+    def started(self) -> bool:
+        """Whether any decode progress exists (False: resume re-admits)."""
+        return bool(self.generated)
 
 
 @dataclasses.dataclass
@@ -329,6 +385,8 @@ class _LaneEngineBase:
         self.staging = HostStaging(pinned=self.device.type == "cuda")
         self._retired_backlog: List[Request] = []   # retired during admit
                                     # drains; reported by the next step_once
+        self._suspended: List[LaneSnapshot] = []    # engine-made snapshots
+                                    # (admit_over), for drain_suspended
 
     @property
     def kv_device_bytes(self) -> int:       # subclasses override
@@ -352,6 +410,25 @@ class _LaneEngineBase:
         if not self.stash_budget_bytes:
             return 0.0
         return self._stash_bytes() / self.stash_budget_bytes
+
+    @property
+    def admission_pressure(self) -> float:
+        """Stash pressure as admission decisions must see it: the measured
+        stash bytes plus the pages suspended snapshots carried out
+        (``export_lane``).  A resume imports those bytes straight back, so
+        gating admissions on the measured gauge alone would let a shed
+        victim resume in the pass that shed it."""
+        if not self.stash_budget_bytes:
+            return 0.0
+        return (self._stash_bytes() + self._exported_bytes()) \
+            / self.stash_budget_bytes
+
+    @property
+    def n_pending_retired(self) -> int:
+        """Requests that retired inside an admit or suspend flush, parked
+        for the next ``step_once`` to report: a driver must keep stepping
+        while this is non-zero."""
+        return len(self._retired_backlog)
 
     @property
     def ladder_stage(self) -> int:
@@ -526,6 +603,75 @@ class _LaneEngineBase:
         self._set_lane_sampling(lane, SamplingParams.greedy())
         self.pos[lane] = min(int(self.pos[lane]), self.max_seq - 1)
 
+    # ---------------- lane lifecycle (suspend / resume / cancel) -------- #
+    def _snap_host(self, lane: int) -> LaneSnapshot:
+        """The lane's host bookkeeping as a snapshot (the fields both
+        engines share); run after ``flush()``, since pending ring entries
+        carry exactly this state."""
+        l = self.lanes[lane]
+        return LaneSnapshot(
+            req=l.request, generated=list(l.generated),
+            history=list(l.history), pos=int(self.pos[lane]),
+            step=int(self.step[lane]), tok=int(self.tok[lane]),
+            rewinds=l.rewinds, last_rewind_step=l.last_rewind_step,
+            lane_seed=self.lane_seeds[lane])
+
+    def _restore_host(self, snap: LaneSnapshot, lane: int) -> None:
+        """Inverse of ``_snap_host``: clocks, tokens, rewind budget, the
+        snapshot's sampling seed and the request's sampling params."""
+        l = self.lanes[lane]
+        l.request = snap.req
+        l.generated = list(snap.generated)
+        l.history = list(snap.history)
+        l.rewinds = snap.rewinds
+        l.last_rewind_step = snap.last_rewind_step
+        self.pos[lane] = snap.pos
+        self.step[lane] = snap.step
+        self.tok[lane] = snap.tok
+        self.lane_seeds[lane] = snap.lane_seed
+        self._set_lane_sampling(lane, snap.req.sampling)
+
+    def drain_suspended(self) -> List[LaneSnapshot]:
+        """Collect (and clear) the snapshots of lanes the engine suspended
+        on its own (the paged engine's ``admit_over`` install).  A driver
+        must call this after every ``step_once`` and requeue them, or the
+        victims' requests are lost."""
+        out, self._suspended = self._suspended, []
+        return out
+
+    def discard_snapshot(self, snap: LaneSnapshot) -> None:
+        """Release what a snapshot that will never resume holds.  A
+        contiguous snapshot owns only host bookkeeping; the paged engine
+        returns its exported pages' bytes."""
+
+    def cancel_lane(self, lane: int) -> Optional[Request]:
+        """Cancel the lane's request (client disconnect): ``suspend_lane``
+        then ``discard_snapshot``.  The request keeps its partial tokens
+        as ``result`` and ends ``CANCELLED``.  Returns None when it
+        retired during the suspend flush (the next ``step_once`` reports
+        that retirement)."""
+        if self.lanes[lane].request is None \
+                and lane not in getattr(self, "prefills", {}):
+            return None
+        snap = self.suspend_lane(lane)
+        if snap is None:
+            return None
+        self.discard_snapshot(snap)
+        req = snap.req
+        req.status = RequestStatus.CANCELLED
+        req.result = np.asarray(snap.generated[: req.n_tokens], np.int32)
+        self.events.append({"event": "cancel", "uid": req.uid,
+                            "lane": lane, "wall_step": self.wall_step,
+                            "generated": len(snap.generated)})
+        return req
+
+    def cancel_request(self, uid: int) -> Optional[Request]:
+        """Find and cancel the lane running ``uid``."""
+        for i, l in enumerate(self.lanes):
+            if l.request is not None and l.request.uid == uid:
+                return self.cancel_lane(i)
+        return None
+
     def _next_lane_seed(self, lane: int) -> int:
         self._admit_count += 1
         self.lane_seeds[lane] = lane_base_seed(self.seed, self._admit_count)
@@ -573,6 +719,19 @@ class ContinuousEngine(_LaneEngineBase):
             self.fcfg.page_size, stash_budget_bytes=sv.stash_budget_bytes,
             kv_quant=sv.kv_quant) \
             if (sv.offload and self.enable_freeze) else None
+
+    @classmethod
+    def from_engine(cls, engine: Engine, n_lanes: int,
+                    **kw) -> "ContinuousEngine":
+        """A continuous engine sharing a static ``Engine``'s model, freeze
+        settings and device (further ``ServingConfig`` fields in ``kw``)."""
+        sv = ServingConfig(max_seq=engine.max_seq, n_lanes=n_lanes,
+                           freeze_cfg=engine.fcfg,
+                           enable_freeze=engine.enable_freeze,
+                           offload=engine.offload,
+                           max_rewinds=engine.max_rewinds,
+                           rewind_cooldown=engine.rewind_cooldown, **kw)
+        return cls(engine.cfg, engine.params, sv, device=engine.device)
 
     @property
     def kv_device_bytes(self) -> int:
@@ -781,19 +940,90 @@ class ContinuousEngine(_LaneEngineBase):
             self.offloader.drop_lane(lane)
         return req
 
+    # ---------------- preemption (suspend / resume) ---------------- #
+    def suspend_lane(self, lane: int) -> Optional[LaneSnapshot]:
+        """Preempt the lane's request and free the lane.  The snapshot
+        carries host bookkeeping only; ``resume_lane`` re-prefills.  The
+        lane's offloaded pages (quantized payloads and scales included)
+        are dropped.  Returns None when the request retired while the
+        in-flight fetch drained (the next ``step_once`` reports it)."""
+        self.flush()
+        l = self.lanes[lane]
+        if l.request is None:
+            return None
+        snap = self._snap_host(lane)
+        self.events.append({"event": "suspend", "uid": snap.req.uid,
+                            "lane": lane, "wall_step": self.wall_step,
+                            "generated": len(snap.generated)})
+        self._park_lane(lane)
+        if self.offloader is not None:
+            self.offloader.drop_lane(lane)
+        return snap
+
+    def resume_lane(self, snap: LaneSnapshot,
+                    lane: Optional[int] = None) -> int:
+        """Re-admit a suspended request: prefill the left-padded prompt
+        plus every generated token but the uncommitted input token into a
+        free lane, then restore the host bookkeeping (decode clock, rewind
+        budget, sampling seed).  The re-prefill is re-bucketed to a power
+        of two, so ``pos`` shifts right by the extra padding; the freeze
+        state restarts at the resume point, so the continuation is
+        approximate (the paged engine's resume is the exact one)."""
+        if not snap.started:
+            return self.admit(snap.req, lane)
+        self._retired_backlog += self._drain_ring()     # as admit drains
+        if lane is None:
+            lane = self._free_lane()
+        if self.lanes[lane].request is not None:
+            raise RuntimeError(f"lane {lane} is busy")
+        prompt = np.asarray(snap.req.prompt, np.int32)
+        sp = self._bucket(len(prompt), snap.req.n_tokens)
+        assert snap.pos == sp + len(snap.generated) - 1, \
+            "snapshot clocks are inconsistent with its token count"
+        remaining = snap.req.n_tokens - len(snap.generated) + 1
+        sb = self._bucket(snap.pos, remaining)
+        toks = np.full((1, sb), self.pad_id, np.int32)
+        off = sb - snap.pos                  # the re-bucketing pad shift
+        toks[0, off + sp - len(prompt):off + sp] = prompt
+        toks[0, off + sp:] = snap.generated[:-1]
+        lane_state = MD.init_decode_state(self.cfg, 1, self.max_seq,
+                                          self.device)
+        self._note_kv_peak(lane_state.cache_k.nbytes
+                           + lane_state.cache_v.nbytes)
+        _, lane_state = MD.prefill(
+            self.params, self.cfg,
+            {"tokens": torch.as_tensor(toks, dtype=torch.int64,
+                                       device=self.device)}, lane_state)
+        self.state = MD.write_lane_state(self.cfg, self.state, lane_state,
+                                         lane)
+        del lane_state
+        if self.offloader is not None:
+            self.offloader.drop_lane(lane)
+        self._restore_host(snap, lane)
+        self.pos[lane] = sb                  # snap.pos plus the pad shift
+        self.events.append({"event": "resume", "uid": snap.req.uid,
+                            "lane": lane, "wall_step": self.wall_step})
+        return lane
+
 
 @dataclasses.dataclass
 class _PendingPrefill:
     """An admission in flight: the prompt is prefilled chunk by chunk into
     a contiguous single-lane scratch cache, interleaved with decode steps
     of the resident lanes; on completion the scratch is repacked into
-    pages and installed into the lane."""
+    pages and installed into the lane.
+
+    ``over=True`` is ``admit_over``'s preempting variant: the lane's
+    current occupant (the victim) keeps decoding while this prefill runs,
+    since the scratch never touches the lane's pool, and is suspended only
+    at install time."""
     req: Request
     toks: np.ndarray          # (1, sp) left-padded prompt
     scratch: Any              # contiguous DecodeState (B=1, S=sp)
     sp: int                   # padded prompt length
     done: int = 0             # tokens prefilled so far
     logits: Any = None        # chunk-final logits (valid once done == sp)
+    over: bool = False        # preempting the lane's current occupant
 
 
 class PagedContinuousEngine(_LaneEngineBase):
@@ -972,6 +1202,8 @@ class PagedContinuousEngine(_LaneEngineBase):
     # ---------------- admission (chunked) ---------------- #
     @property
     def has_free_lane(self) -> bool:
+        # a lane mid over-prefill whose victim already retired holds no
+        # request, but it is spoken for
         return any(l.request is None and i not in self.prefills
                    for i, l in enumerate(self.lanes))
 
@@ -981,7 +1213,8 @@ class PagedContinuousEngine(_LaneEngineBase):
                 return i
         raise RuntimeError("no free lane")
 
-    def _queue_prefill(self, req: Request, lane: int) -> None:
+    def _queue_prefill(self, req: Request, lane: int,
+                       over: bool = False) -> None:
         prompt = np.asarray(req.prompt, np.int32)
         sp = self._bucket(len(prompt), req.n_tokens)
         if not self.enable_freeze:
@@ -997,10 +1230,11 @@ class PagedContinuousEngine(_LaneEngineBase):
         self.prefills[lane] = _PendingPrefill(
             req=req, toks=self._left_padded(prompt, sp),
             scratch=MD.init_decode_state(self.cfg, 1, sp, self.device),
-            sp=sp)
+            sp=sp, over=over)
         self.events.append({"event": "admit_start", "uid": req.uid,
                             "lane": lane, "wall_step": self.wall_step,
-                            "prompt_len": len(prompt), "bucket": sp})
+                            "prompt_len": len(prompt), "bucket": sp,
+                            **({"over": True} if over else {})})
 
     def _assign_lane(self, req: Request, lane: int) -> None:
         l = self.lanes[lane]
@@ -1021,6 +1255,21 @@ class PagedContinuousEngine(_LaneEngineBase):
             raise RuntimeError(f"lane {lane} is busy")
         self._queue_prefill(req, lane)
         self._assign_lane(req, lane)
+        return lane
+
+    def admit_over(self, req: Request, lane: int) -> int:
+        """Preempting admission: queue ``req``'s chunked prefill against a
+        busy lane whose occupant keeps decoding meanwhile.  At install the
+        victim is suspended (a ``suspend_lane`` snapshot, collected by
+        ``drain_suspended``) and ``req`` takes the lane; if the victim
+        retired first, the install is a plain admission and no snapshot
+        is made."""
+        if self.lanes[lane].request is None:
+            raise RuntimeError(
+                f"lane {lane} is free: use admit(), not admit_over()")
+        if lane in self.prefills:
+            raise RuntimeError(f"lane {lane} already has a prefill queued")
+        self._queue_prefill(req, lane, over=True)
         return lane
 
     def _prefill_tick(self, lane: int, busy: bool = True) -> None:
@@ -1052,6 +1301,14 @@ class PagedContinuousEngine(_LaneEngineBase):
         tail), older pages are stashed in the host store, and
         ``PagedController.write_lane`` resets exactly this lane."""
         pp = self.prefills.pop(lane)
+        if pp.over:
+            # install-time preemption: the victim decoded through the
+            # preemptor's prefill and is suspended now, unless it retired
+            if self.lanes[lane].request is not None:
+                snap = self._suspend_decode(lane)
+                if snap is not None:
+                    self._suspended.append(snap)
+            self._assign_lane(pp.req, lane)
         sp, page, P, L = pp.sp, self.page, self.P, self.L_attn
         P_total = self.P_total
         # wholesale lane reset first: it also clears the lane's recovery
@@ -1131,7 +1388,8 @@ class PagedContinuousEngine(_LaneEngineBase):
         finished = self._retired_backlog + self._drain_ring()
         self._retired_backlog = []
         decode_lanes = [i for i, l in enumerate(self.lanes)
-                        if l.request is not None and i not in self.prefills]
+                        if l.request is not None
+                        and (i not in self.prefills or self.prefills[i].over)]
         if decode_lanes:
             boundary = [i for i in decode_lanes if self.pos[i] % self.page == 0]
             if boundary:
@@ -1495,6 +1753,163 @@ class PagedContinuousEngine(_LaneEngineBase):
     def _quarantine_rewind(self, lane: int) -> bool:
         return self._rewind_lane(lane)
 
+    # ---------------- preemption (suspend / resume) ---------------- #
+    def suspend_lane(self, lane: int) -> Optional[LaneSnapshot]:
+        """Freeze-native preemption: move the lane's whole residency into
+        a snapshot and free the lane without losing decode progress.  The
+        snapshot owns the lane's pool slice (K/V pages, page table, slot
+        masks, quant flags and scales, page-freeze counters), its
+        recovery-ladder scalars and every host-stashed page, moved out of
+        the controller (``export_lane``) so reassigning the lane cannot
+        drop them.  ``resume_lane`` pushes the slice back verbatim.
+
+        An admission still in chunked prefill is cancelled instead (the
+        snapshot re-admits); on a lane mid ``admit_over`` this suspends
+        the decoding victim and leaves the preemptor's prefill queued.
+        Returns None when the request retired while the in-flight fetch
+        drained (the next ``step_once`` reports it)."""
+        self.flush()
+        l = self.lanes[lane]
+        pp = self.prefills.get(lane)
+        if pp is not None and not pp.over:
+            if l.request is None:
+                return None
+            self.prefills.pop(lane)
+            snap = LaneSnapshot(req=pp.req, generated=[], history=[],
+                                pos=0, step=0, tok=self.pad_id,
+                                rewinds=0, last_rewind_step=-10**9)
+            self.events.append({"event": "suspend", "uid": pp.req.uid,
+                                "lane": lane, "wall_step": self.wall_step,
+                                "generated": 0})
+            self.ctl.drop_lane(lane)
+            self._park_lane(lane)
+            return snap
+        return self._suspend_decode(lane)
+
+    def _lane_payload(self, lane: int, snap: LaneSnapshot) -> None:
+        """Fill a snapshot's paged payload, all but ``stashed``: one pull
+        of the lane's slice over all ``P_total`` slots (staging included,
+        so staged pages survive a move to any lane), deep-copied out of
+        the reused staging buffers, and the recovery scalars in one pull."""
+        pool, fstate = self._pull_lanes([lane])
+        snap.pool = {f: a.copy() for f, a in pool.items()}
+        snap.fstate = {f: a.copy() for f, a in fstate.items()}
+        rec = self.state.recovery
+        vals = torch.stack([a[lane].double() for a in rec]).tolist()
+        snap.recovery = {f: (v if f == "ema_entropy" else int(v))
+                         for f, v in zip(rec._fields, vals)}
+        snap.tail_slot = self.tail_slot[:, lane].copy()
+        snap.pending_thaw = lane in self.pending_thaws
+        snap.urgency = float(self._urgency[lane])
+
+    def _suspend_decode(self, lane: int) -> Optional[LaneSnapshot]:
+        """The decode-lane suspension shared by ``suspend_lane`` and
+        ``admit_over``'s install: flush, snapshot, export, free."""
+        self.flush()
+        if self.lanes[lane].request is None:
+            return None
+        snap = self._snap_host(lane)
+        self._lane_payload(lane, snap)
+        # the staged-slot marks ride the export: losing them would
+        # de-schedule the resumed lane's remap-only thaw installs
+        snap.stashed = self.ctl.export_lane(lane)
+        self.events.append({"event": "suspend", "uid": snap.req.uid,
+                            "lane": lane, "wall_step": self.wall_step,
+                            "generated": len(snap.generated),
+                            "stashed_pages": len(snap.stashed)})
+        self.state = MD.reset_paged_lane(self.cfg, self.state, lane)
+        self.ctl.drop_lane(lane)
+        self.pending_thaws.discard(lane)
+        self._urgency[lane] = 0.0
+        self._park_lane(lane)
+        return snap
+
+    def resume_lane(self, snap: LaneSnapshot,
+                    lane: Optional[int] = None) -> int:
+        """Re-admit a suspended request by restore, with no re-prefill:
+        the stashed pages are rekeyed to the destination lane
+        (``import_lane``), the pool slice is pushed back byte-identical,
+        and the recovery scalars, tail slots, clocks and sampling seed are
+        restored, so the continuation is token-identical."""
+        if not snap.started:
+            return self.admit(snap.req, lane)
+        self._retired_backlog += self._drain_ring()
+        if lane is None:
+            lane = self._free_lane()
+        if self.lanes[lane].request is not None or lane in self.prefills:
+            raise RuntimeError(f"lane {lane} is busy")
+        # host store first: the pushed page table expects its pages there;
+        # a checkpoint's bytes never left the controller's accounting
+        self.ctl.import_lane(lane, snap.stashed, counted=snap.exported)
+        self._push_lanes(snap.pool, snap.fstate, [lane])
+        # the slice may hold quantized resident pages: rebuild the lane's
+        # packed-residency ledger
+        self.ctl.refresh_resident_quant(snap.pool, 0, lane)
+        for lyr in range(self.L_attn):
+            self.ctl.stage_slots[(lyr, lane)] = \
+                list(range(self.P, self.P_total))
+        r = snap.recovery
+        self.state = MD.set_paged_lane_recovery(
+            self.cfg, self.state, lane, r["ema_entropy"], r["level"],
+            r["calm_steps"], r["steps_seen"])
+        self.tail_slot[:, lane] = snap.tail_slot
+        self._restore_host(snap, lane)
+        if snap.pending_thaw:
+            self.pending_thaws.add(lane)
+        self._urgency[lane] = snap.urgency
+        self.events.append({"event": "resume", "uid": snap.req.uid,
+                            "lane": lane, "wall_step": self.wall_step,
+                            "stashed_pages": len(snap.stashed)})
+        return lane
+
+    def cancel_request(self, uid: int) -> Optional[Request]:
+        """Cancellation also reaches a preemptor still in its
+        ``admit_over`` prefill: its scratch never touched the lane's pool,
+        so dropping the prefill is the whole cancellation and the victim
+        decodes on undisturbed."""
+        for lane, pp in list(self.prefills.items()):
+            if pp.req.uid == uid and pp.over:
+                self.prefills.pop(lane)
+                req = pp.req
+                req.status = RequestStatus.CANCELLED
+                req.result = np.zeros(0, np.int32)
+                self.events.append({"event": "cancel", "uid": uid,
+                                    "lane": lane,
+                                    "wall_step": self.wall_step,
+                                    "generated": 0})
+                return req
+        return super().cancel_request(uid)
+
+    def discard_snapshot(self, snap: LaneSnapshot) -> None:
+        """Return the exported pages' bytes of a snapshot that will never
+        resume; without it ``exported_bytes`` (and the admission pressure
+        it feeds) would count them forever.  A checkpoint
+        (``exported=False``) moved no accounting, so dropping it is free."""
+        if snap.stashed and snap.exported:
+            self.ctl.release_exported(snap.stashed)
+        snap.stashed = None
+
+    def checkpoint_lane(self, lane: int) -> Optional[LaneSnapshot]:
+        """A resume-exact snapshot of a decoding lane that leaves the lane
+        running: the controller keeps its store (``copy_lane`` shares the
+        immutable payloads and copies the freeze metas), so no gauge
+        moves and the snapshot is marked ``exported=False``.  Returns None
+        for an idle lane or one still in chunked prefill."""
+        self.flush()
+        l = self.lanes[lane]
+        pp = self.prefills.get(lane)
+        if l.request is None or (pp is not None and not pp.over):
+            return None
+        snap = self._snap_host(lane)
+        self._lane_payload(lane, snap)
+        snap.stashed = self.ctl.copy_lane(lane)
+        snap.exported = False
+        self.events.append({"event": "checkpoint", "uid": snap.req.uid,
+                            "lane": lane, "wall_step": self.wall_step,
+                            "generated": len(snap.generated),
+                            "stashed_pages": len(snap.stashed)})
+        return snap
+
     def _retire(self, lane: int) -> Request:
         l = self.lanes[lane]
         req = l.request
@@ -1511,5 +1926,6 @@ class PagedContinuousEngine(_LaneEngineBase):
         self.state = MD.reset_paged_lane(self.cfg, self.state, lane)
         self.ctl.drop_lane(lane)
         self.pending_thaws.discard(lane)
+        self._urgency[lane] = 0.0
         self._set_lane_sampling(lane, SamplingParams.greedy())
         return req

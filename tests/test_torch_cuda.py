@@ -499,3 +499,37 @@ def test_tiny_continuous_engine_runs_through_the_kernels(card):
     assert K2.freeze_decode_attention_cuda.launches == n
     assert K3.relevance_freeze_cuda.launches == n
     assert max(max(r.telemetry.frozen_kv) for r in done) > 0
+
+
+@pytest.mark.parametrize("arm", ["sync", "async"])
+def test_tiny_lifecycle_trace_matches_cpu(card, arm):
+    """Trace (a) of ``lifecycle_cases`` (suspend mid-decode, a filler in
+    the victim's lane, resume into the other lane) on the card and on the
+    CPU call for call, at the end counts tests/test_torch_lifecycle.py
+    pins, through kernel 1 on every card step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+    from repro_torch.serving import lifecycle_cases as LC
+    from repro_torch.serving.config import ServingConfig
+    from repro_torch.serving.engine import PagedContinuousEngine, Request
+    from repro_torch.serving.sampling import SamplingParams
+    cfg = get_config("llama3-8b-tiny")
+    cfg = dataclasses.replace(cfg, dtype="float32", freeze=dataclasses.
+                              replace(cfg.freeze, **LC.FREEZE))
+    params = MD.init_params(cfg, 0, "cpu")
+    sv = ServingConfig(**LC.SERVING["a"], async_pipeline=arm == "async")
+    engines = [PagedContinuousEngine(cfg, _to(params, dev), sv, device=dev)
+               for dev in ("cpu", card)]
+    make = lambda u, p, n: Request(u, p, n, SamplingParams.greedy())
+    d = LC.Lockstep(engines, [make, make])
+    K.paged_decode_attention_cuda.launches = 0
+    LC.trace_a(d)
+    d.results()
+    assert K.paged_decode_attention_cuda.launches == \
+        engines[1].wall_step * cfg.num_layers
+    got = LC.end_counts(d)
+    assert (got["wall_step"], got["swaps"], got["peak_exported"],
+            got["requests"]) == \
+        (38, (20, 12), 16384,
+         {1: ("completed", 32, 7095), 2: ("completed", 8, 2417)})

@@ -11,11 +11,24 @@ bytes of the host store.  The async arms are held against ``repro``'s
 async engines (3 staging slots a lane on the paged one), whose fetch ring
 drains in the same calls as the port's.
 
+``repro``'s paged engine refills its host staging buffer for the next
+page right after handing it to an asynchronous ``jnp.asarray``; on a
+loaded CPU the dispatched staging write can read the next page's bytes,
+and a swap-in that installs from that staging slot then changes the
+reference's tokens (ROADMAP Queue 3).  ``_race_free_reference`` gives
+every reference staging request its own buffer, the bytes each upload
+means to carry, and the recovery trace's async run is also held to the
+reference's tokens and gauges after every call as recorded from a clean
+run (``torch_pins/``; regenerate with
+``JAX_PLATFORMS=cpu PYTHONPATH=src python tests/test_torch_ladder.py``).
+
     JAX_PLATFORMS=cpu PYTHONPATH=src python -m pytest -q \\
         tests/test_torch_ladder.py
 """
 import dataclasses
 import functools
+import json
+import pathlib
 import re
 
 import jax
@@ -25,6 +38,7 @@ import torch
 
 from repro.configs import get_config as rget_config
 from repro.models import model as RMD
+from repro.serving import dma as RDMA
 from repro.serving import engine as RE
 from repro.serving.config import ServingConfig as RServingConfig
 from repro.serving.sampling import SamplingParams as RSampling
@@ -44,6 +58,20 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def _fresh_buf(self, name, shape, dtype):
+    b = np.empty(shape, dtype)
+    self._bufs[name] = b
+    return b
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _race_free_reference():
+    orig = RDMA.HostStaging.buf
+    RDMA.HostStaging.buf = _fresh_buf
+    yield
+    RDMA.HostStaging.buf = orig
 
 
 # tests/test_torch_engine.py's paged traces, and test_torch_async.py's
@@ -78,6 +106,9 @@ THAW_BUDGET = 172032
 CONTIGUOUS_BUDGET = 20480
 RUNG1_ONLY = dict(deny_prefetch=0.0, deepen_timers=2.0,
                   throttle_admissions=2.0, shed=2.0)
+# the reference's record of recovery_thaw, async, at THAW_BUDGET
+THAW_PIN = pathlib.Path(__file__).with_name("torch_pins") / \
+    "ladder_recovery_thaw_async.json"
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,7 +149,8 @@ def _gauges(eng):
                ladder_stage=eng.ladder_stage,
                stash_pressure=eng.stash_pressure, wall_step=eng.wall_step,
                ladder_deny=eng.robust["ladder_deny"],
-               ladder_deepen=eng.robust["ladder_deepen"])
+               ladder_deepen=eng.robust["ladder_deepen"],
+               generated=[list(map(int, l.generated)) for l in eng.lanes])
     return out
 
 
@@ -293,8 +325,14 @@ def test_recovery_thaw_budget_async_meets_pending_thaws():
 
         eng._maybe_prefetch, eng._boundary_tick = denied, deepened
 
-    ref, eng, treqs, _ = _run_pair("recovery_thaw", True, THAW_BUDGET,
-                                   hook=hook)
+    ref, eng, treqs, calls = _run_pair("recovery_thaw", True, THAW_BUDGET,
+                                       hook=hook)
+    pin = json.loads(THAW_PIN.read_text())
+    assert [t.result.tolist() for t in treqs] == pin["tokens"]
+    assert [t.telemetry.rewinds for t in treqs] == pin["rewinds"]
+    assert len(calls) == len(pin["calls"])
+    for n, (g, want) in enumerate(zip(calls, pin["calls"])):
+        assert g == want, (f"call {n + 1}", g, want)
     assert met["deny"] > 0 and met["deepen"] > 0, met
     assert eng.ctl.n_denied_offloads > 0 and eng.ctl.n_thaw > 0
     assert eng.ctl.n_deepen_skips > 0
@@ -425,3 +463,39 @@ def test_launcher_prints_the_ladder_line(capsys, monkeypatch):
     assert rs["ladder_deny"] > 0
     serve.main(args + ["--tokens", "8"])
     assert "ladder:" not in capsys.readouterr().out
+
+
+def _reference_record(trace, is_async, budget):
+    """``repro``'s engine alone on ``trace`` through ``_lockstep``'s FIFO
+    loop: its tokens, rewinds and ``_gauges`` after every call."""
+    rcfg, rparams, _, _, prompts = _models(trace)
+    sv = dict(TRACES[trace]["serving"], async_pipeline=is_async,
+              stash_budget_bytes=budget)
+    ref = RE.PagedContinuousEngine(rcfg, rparams,
+                                   serving=RServingConfig(**sv))
+    reqs = [RE.Request(u, p, n, RSampling.greedy())
+            for u, (p, n) in enumerate(prompts)]
+    q, done, calls = list(reqs), 0, []
+    while done < len(reqs):
+        while q and ref.has_free_lane:
+            ref.admit(q.pop(0))
+        done += len(ref.step_once())
+        calls.append(_gauges(ref))
+    return {"tokens": [r.result.tolist() for r in reqs],
+            "rewinds": [r.telemetry.rewinds for r in reqs], "calls": calls}
+
+
+if __name__ == "__main__":
+    # pin the recovery trace from three runs of the reference as it is and
+    # one with race-free staging buffers, all of which must agree
+    torch.set_num_threads(1)
+    runs = [_reference_record("recovery_thaw", True, THAW_BUDGET)
+            for _ in range(3)]
+    orig = RDMA.HostStaging.buf
+    RDMA.HostStaging.buf = _fresh_buf
+    runs.append(_reference_record("recovery_thaw", True, THAW_BUDGET))
+    RDMA.HostStaging.buf = orig
+    assert all(r == runs[0] for r in runs), "the reference wobbled: rerun"
+    THAW_PIN.parent.mkdir(exist_ok=True)
+    THAW_PIN.write_text(json.dumps(runs[0], separators=(",", ":")) + "\n")
+    print(f"wrote {THAW_PIN} ({len(runs[0]['calls'])} calls)")
