@@ -61,7 +61,14 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      another lane, an ``admit_over`` preemption, cancellations and a
      discarded snapshot) on the card and the CPU in lockstep, async and
      sync: gauges, tokens, events and snapshots equal after every call,
-     at the end counts tests/test_torch_lifecycle.py pins;
+     at the end counts tests/test_torch_lifecycle.py pins; the SLO
+     scheduler (``serving/sched_cases.py``: FIFO degradation, a priority
+     jump, deadline preemption on the paged engine async and sync and on
+     the contiguous engine, the ladder's throttle/shed trace), card and
+     CPU in lockstep on one virtual clock a side: tokens, ``metrics``
+     rows, queue order, preemptions, ladder counters, engine gauges and
+     events equal after every call, at the end counts
+     tests/test_torch_scheduler.py pins against ``repro``;
   5. main paths — llama3-8b at full published width and depth (bf16 random
      weights made on the card from a seed, once) serves 8 requests of 128
      new tokens through the paged engine and then through the contiguous
@@ -96,13 +103,23 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      ``exported_bytes`` back to 0, kernel 1 every step), and the
      contiguous engine with a suspension and its re-prefill resume (every
      request complete, the prefix kept, kernels 2 and 3 every step);
-     suspend and resume host times and snapshot bytes are printed.
+     suspend and resume host times and snapshot bytes are printed.  The
+     SLO scheduler at full width: the paged engine (4 lanes, P = 8 + 3,
+     fixed chunk split, async, recovery off) serves a mixed-SLO trace (4
+     long hogs, 8 backgrounds, 4 deadlined foregrounds arriving while the
+     lanes are busy) under ``policy="fifo"`` and then ``policy="slo"``,
+     deadlines from a calibrated step time: the SLO arm preempts through
+     ``admit_over``, beats FIFO on foreground hit rate and p99, every
+     request's tokens are identical in the two arms, kernel 1 launches
+     steps x 32 and ``exported_bytes`` ends at 0.
      ``Engine.generate`` then runs the
      paper's Table-1 protocol (14-token prompt, 500 new tokens) with
      freeze off and on, ``launch/bench_async.py`` its smoke trace on
      the card (sync vs async paged engine, tiny model), and
      ``launch/bench_quant.py`` its needle smoke (the four quant criteria
-     of ``tools/check_bench.py``);
+     of ``tools/check_bench.py``) and ``launch/bench_sched.py`` its
+     mixed-SLO smoke on the real clock (``check_scheduling``'s criteria,
+     retraces aside; ``chiprun_out/bench_sched.json``);
   6. kernel timing at the main-path shapes (the paged kernel at the P + S
      layout of the async main path and at P): device time per call from CUDA
      graph replay over rotated input copies (read from HBM, as in the
@@ -2265,6 +2282,204 @@ def phase_bench_quant(torch, kernels, card_line):
         f"{q['dma_bytes']} (modeled packed bytes); {launched} kernel "
         f"launches")
 
+def phase_sched_reference(kernels):
+    """The SLO scheduler on the tiny f32 model, greedy: the policy and
+    preemption traces of ``serving/sched_cases.py`` (FIFO degradation, a
+    priority jump, deadline preemption on the paged engine async and sync
+    and on the contiguous engine) and the throttle/shed trace, each on the
+    CPU (plain versions) and on the card (kernels) in lockstep, one
+    virtual clock a side: tokens, ``metrics`` rows, queue order,
+    preemptions, ladder counters, engine gauges and events equal after
+    every call, at the end counts tests/test_torch_scheduler.py pins
+    against ``repro``; each decode step launches the engine's kernels."""
+    from repro_torch.serving import sched_cases as SC
+    cfgs, params_cpu = SC.port_models()
+    sides = [SC.port_side("cpu", params_cpu), SC.port_side("cuda",
+                                                           params_cpu)]
+    layers = cfgs["plain"].num_layers
+    for name in SC.CARD_TRACES:
+        _reset_counts(kernels)
+        t0 = time.perf_counter()
+        d = SC.run(name, sides)
+        dt = time.perf_counter() - t0
+        launched = _read_counts(kernels)
+        got = SC.end_counts(d)
+        assert got == SC.EXPECTED[name], (name, got, SC.EXPECTED[name])
+        steps = sum(s.engine.wall_step for s in d.opened)
+        paged = name != "preempt_contiguous"
+        want = {"paged_decode_attention": steps * layers if paged else 0,
+                "freeze_decode_attention": 0 if paged else steps * layers,
+                "relevance_freeze_update": 0 if paged else steps * layers}
+        assert launched == want, (name, launched, want)
+        log(f"reference scheduler {name}: tiny f32 greedy, card == CPU "
+            f"after each of {got['calls']} calls (tokens, metrics rows, "
+            f"queue, preemptions {got['counts'][0]}, ladder throttle/shed "
+            f"{got['ladder']}, engine gauges, events) in {dt:.1f}s; "
+            f"requests {got['requests']}; kernel launches {launched}")
+
+
+def phase_bench_sched(torch, kernels, card_line):
+    """``launch/bench_sched.py`` at smoke scale on the card, on the real
+    clock: the tiny f32 model through the paged engine, FIFO against the
+    SLO scheduler on the mixed-SLO trace; its own check holds it to
+    ``tools/check_bench.py``'s scheduling criteria."""
+    from repro_torch.launch import bench_sched
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    res = bench_sched.run_sched_comparison(smoke=True, device="cuda",
+                                           seed=SEED)
+    dt = time.perf_counter() - t0
+    launched = _read_counts(kernels)["paged_decode_attention"]
+    for line in bench_sched.summary_lines(res):
+        log(f"  {line}")
+    (OUT_DIR / "bench_sched.json").write_text(json.dumps(
+        {"card": card_line, "scheduling": res}, indent=1))
+    bench_sched.check(res)
+    assert launched > 0, launched
+    fifo, slo = res["fifo"], res["slo"]
+    log(f"bench_sched smoke [{card_line}] on the card in {dt:.1f}s: "
+        f"{res['preemptions']} preemptions, hit rate "
+        f"{slo['fg_deadline_hit_rate']} > {fifo['fg_deadline_hit_rate']}, "
+        f"fg p99 {slo['fg_latency_p99_s']} s < {fifo['fg_latency_p99_s']} "
+        f"s, steady tokens/step {slo['steady_tokens_per_step']} vs "
+        f"{fifo['steady_tokens_per_step']}, blocked_s {slo['blocked_s']} "
+        f"vs {fifo['blocked_s']}, parity "
+        f"{res['preempt_resume_token_parity']} ({res['parity_audited']} "
+        f"audited); {launched} kernel launches")
+
+
+# the full-width mixed-SLO trace: 4 hogs, 8 backgrounds (priority 5) and 4
+# deadlined foregrounds (priority 0) on 4 lanes
+SCHED_LANES = 4
+
+
+def _sched_trace(engine_mod, cfg, step_s):
+    """(arrival s, submit keywords, role) of the full-width mixed-SLO
+    trace, from ``RandomState(SEED)``: foregrounds arrive at (i + 0.35) x
+    gap, the gap spreading them over the first ~60% of the background span
+    on 4 lanes as ``launch/bench_sched.py::make_trace`` does on 2."""
+    from repro_torch.launch import bench_sched
+    rng = np.random.RandomState(SEED)
+    greedy = engine_mod.SamplingParams.greedy()
+    trace, bg_total = [], 0
+    for n_prompt, n_new in ([(rng.randint(700, 1001), 96) for _ in range(4)]
+                            + [(rng.randint(64, 257), rng.randint(16, 41))
+                               for _ in range(8)]):
+        bg_total += int(n_new)
+        trace.append((0.0, dict(
+            prompt=rng.randint(0, cfg.vocab_size, int(n_prompt)),
+            n_tokens=int(n_new), sampling=greedy, priority=5), "bg"))
+    n_fg = 4
+    gap = 0.6 * (bg_total / SCHED_LANES) * step_s / n_fg
+    for i in range(n_fg):
+        trace.append(((i + 0.35) * gap, dict(
+            prompt=rng.randint(0, cfg.vocab_size, 32), n_tokens=8,
+            sampling=greedy, priority=0,
+            deadline_ms=1e3 * bench_sched.DEADLINE_STEPS * step_s), "fg"))
+    return trace
+
+
+def phase_sched_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
+                          params, card_line):
+    """The SLO scheduler at full width: PagedContinuousEngine (4 lanes, P =
+    8 pages of 64 + 3 staging, prefill chunk 256, fixed chunk split,
+    async) with the launcher's freeze settings and recovery off, on the
+    params already on the card.  The step time is calibrated by a short
+    SLO pass on the engine; then the mixed-SLO trace is served under
+    ``policy="fifo"`` and under ``policy="slo"`` on the real clock.  The
+    SLO arm must preempt (``admit_over``), beat FIFO on foreground hit
+    rate and p99, and give every request the FIFO arm's tokens; kernel 1
+    launches 32 times a step in each arm and ``exported_bytes`` ends at 0.
+    Returns each arm's kernel-1 launches."""
+    from repro_torch.launch import bench_sched
+    from repro_torch.serving.scheduler import Scheduler
+    cfg = launcher.launcher_config("llama3-8b", tiny=False, recovery=False)
+    sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=SCHED_LANES,
+                               max_active_pages=8, prefill_chunk=256,
+                               seed=SEED, async_pipeline=True,
+                               burst_prefill=False)
+    engine = engine_mod.PagedContinuousEngine(cfg, params, sv, device="cuda")
+    assert engine.S_stage == 3
+    rng = np.random.RandomState(SEED + 1)
+    warm = [(0.0, dict(prompt=rng.randint(0, cfg.vocab_size, 32),
+                       n_tokens=24,
+                       sampling=engine_mod.SamplingParams.greedy()), "bg")
+            for _ in range(SCHED_LANES)]
+    t0 = time.perf_counter()
+    _, _, step_lat, _ = bench_sched.drive(Scheduler(engine),
+                                          warm, time.monotonic)
+    step_s = float(np.median(step_lat))
+    trace = _sched_trace(engine_mod, cfg, step_s)
+    log(f"main path scheduler [{card_line}]: calibrated step "
+        f"{1e3 * step_s:.2f} ms over {len(step_lat)} calls in "
+        f"{time.perf_counter() - t0:.1f}s -> foreground deadline "
+        f"{bench_sched.DEADLINE_STEPS} steps = "
+        f"{1e3 * bench_sched.DEADLINE_STEPS * step_s:.0f} ms, arrivals at "
+        f"{[round(t, 3) for t, _, r in trace if r == 'fg']} s")
+    arms, launched = {}, []
+    for policy in ("fifo", "slo"):
+        sched = Scheduler(engine, policy=policy)
+        w0, b0 = engine.wall_step, engine.stats.blocked_s
+        n_events = len(engine.events)
+        _reset_counts(kernels)
+        roles, wall, _, steady = bench_sched.drive(sched, trace,
+                                                   time.monotonic)
+        counts = _read_counts(kernels)
+        steps = engine.wall_step - w0
+        ss = (steady[0] - w0, steady[1]) if steady else (steps, 0)
+        stats = bench_sched.arm_stats(sched, roles, wall, trace, steps,
+                                      engine.stats.blocked_s - b0, ss)
+        assert counts["paged_decode_attention"] == steps * cfg.num_layers, \
+            (policy, counts, steps)
+        assert counts["freeze_decode_attention"] == 0 and \
+            counts["relevance_freeze_update"] == 0, counts
+        assert engine.robust_snapshot()["exported_bytes"] == 0
+        assert not engine.ctl.store and not engine.ctl.frozen_meta
+        done = sched.done
+        assert len(done) == len(trace) and all(
+            len(r.result) == kw["n_tokens"] and str(r.status) == "completed"
+            for r, (_, kw, _) in zip((done[u] for u in sorted(done)),
+                                     sorted(trace, key=lambda t: t[0])))
+        overs = sum(1 for e in engine.events[n_events:]
+                    if e["event"] == "admit_start" and e.get("over"))
+        launched.append(counts["paged_decode_attention"])
+        arms[policy] = dict(stats=stats, overs=overs, tokens={
+            u: r.result for u, r in done.items()})
+        ema = lambda x: "none" if x is None else f"{1e3 * x:.2f} ms"
+        log(f"main path scheduler {policy} [{card_line}], async, no "
+            f"profiler: wall {stats['wall_s']} s, {stats['tokens_per_s']} "
+            f"tokens/s, {steps} decode steps ({counts['paged_decode_attention']}"
+            f" kernel launches = steps x {cfg.num_layers}), steady tokens/step "
+            f"{stats['steady_tokens_per_step']}, blocked_s "
+            f"{stats['blocked_s']}, fg p50 {stats['fg_latency_p50_s']} s / "
+            f"p99 {stats['fg_latency_p99_s']} s, hit rate "
+            f"{stats['fg_deadline_hit_rate']}, preemptions "
+            f"{sched.n_preemptions} ({overs} through admit_over), skipped "
+            f"by the cost model {sched.n_preempt_skipped_cost}, step EMA "
+            f"{ema(sched._step_s)}, suspend EMA {ema(sched._suspend_s)}, "
+            f"resume EMA {ema(sched._resume_s)}; exported_bytes 0 at the end")
+    fifo, slo = arms["fifo"], arms["slo"]
+    assert slo["stats"]["preemptions"] >= 1 and slo["overs"] >= 1, slo
+    assert fifo["stats"]["preemptions"] == 0
+    assert slo["stats"]["fg_deadline_hit_rate"] > \
+        fifo["stats"]["fg_deadline_hit_rate"], (slo["stats"], fifo["stats"])
+    assert slo["stats"]["fg_latency_p99_s"] < \
+        fifo["stats"]["fg_latency_p99_s"], (slo["stats"], fifo["stats"])
+    assert sorted(slo["tokens"]) == sorted(fifo["tokens"])
+    for uid, toks in fifo["tokens"].items():
+        i = _first_divergence(slo["tokens"][uid], toks)
+        assert i is None, f"scheduler request {uid}: SLO and FIFO tokens " \
+                          f"diverge at generated token {i}"
+    log(f"main path scheduler: SLO hit rate "
+        f"{slo['stats']['fg_deadline_hit_rate']} > FIFO "
+        f"{fifo['stats']['fg_deadline_hit_rate']}, fg p99 "
+        f"{slo['stats']['fg_latency_p99_s']} s < "
+        f"{fifo['stats']['fg_latency_p99_s']} s; every one of "
+        f"{len(fifo['tokens'])} requests' tokens identical in both arms")
+    del engine
+    torch.cuda.empty_cache()
+    return launched
+
 
 def main() -> int:
     name, count, card_line = phase_device()
@@ -2301,6 +2516,7 @@ def main() -> int:
     phase_contiguous_quant_reference(kernels, launcher, MD, engine_mod,
                                      cfg_mod)
     phase_lifecycle_reference(K, MD, engine_mod, cfg_mod)
+    phase_sched_reference(kernels)
     cfg = _full_width_config(launcher)
     t0 = time.perf_counter()
     params = MD.init_params(cfg, SEED, "cuda")
@@ -2325,11 +2541,15 @@ def main() -> int:
     lifecycle = phase_lifecycle_main_path(torch, kernels, launcher,
                                           engine_mod, cfg_mod, params,
                                           card_line, paged, contiguous)
+    sched_launches = phase_sched_main_path(torch, kernels, launcher,
+                                           engine_mod, cfg_mod, params,
+                                           card_line)
     phase_table1(torch, kernels, launcher, engine_mod, params, card_line)
     del params
     torch.cuda.empty_cache()
     phase_bench_async(torch, kernels, card_line)
     phase_bench_quant(torch, kernels, card_line)
+    phase_bench_sched(torch, kernels, card_line)
     # kernel 1 at the main path's staged layout (P + S, S reserved; the
     # kernels line) and at the plain P layout of the --no-async arm
     plain_case, staged_case, S = C.staged_layout_pair()
@@ -2351,6 +2571,7 @@ def main() -> int:
              launches=launches, launches_ladder_serves=ladder_launches,
              launches_lifecycle_serves=lifecycle["paged"][
                  "paged_decode_attention"],
+             launches_sched_serves=sched_launches,
              max_abs_err=err, ms=ms, plain_ms=plain_ms,
              bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
              **{f"{k}_{mode}_pages": v for mode, t in quant_t.items()

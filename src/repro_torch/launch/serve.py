@@ -22,6 +22,8 @@ engines, on the card unless ``--device cpu`` is given:
         --kv-quant fp8
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged \
         --device cpu --stash-budget-mb 0.25
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged \
+        --device cpu --background 2 --deadline-ms 500 --priority 0
 
 Both continuous engines run the async DMA pipeline by default (the
 per-step fetch is consumed one call later; on ``--paged`` likely thaws are
@@ -35,22 +37,32 @@ pages); in the default mode the host offload's stash, dequantized on the
 host when a page is restored (the ``host offload`` line's stash bytes are
 the payload's).  ``--static`` accepts the flag and ignores it, as the
 reference launcher does.
-``--stash-budget-mb`` bounds the host stash: the engine's ladder rungs
-engage as stash pressure rises, and a ``chaos: ... ladder: ...`` line
-reports their counters and the stash peak against the budget.
+``--stash-budget-mb`` bounds the host stash: the ladder's rungs engage as
+stash pressure rises (the engine's rungs 1-2, the scheduler's throttle
+and shed), and a ``chaos: ... ladder: ...`` line reports their counters
+and the stash peak against the budget.
+
+Both continuous modes serve through the SLO ``Scheduler``: strict
+``--priority`` classes, earliest deadline first within a class
+(``--deadline-ms``, or ``--slo-tps`` turned into a deadline), and lane
+preemption for a request predicted to miss its deadline
+(``--no-preempt``: reordering only).  ``--background N`` submits N
+priority-9 greedy generations of max(2 x ``--tokens``, 64) tokens with
+32-token prompts first, to contend with.  With deadlines or preemptions
+the summary ends with an ``slo:`` line.
 
 The freeze settings match ``repro.launch.serve``: ``--quantile-tau q > 0``
 switches to the adaptive quantile threshold with window 16, k_soft 1.0 and
-the absolute entropy threshold off (1e9).  The continuous engines serve
-requests in FIFO order: admit while a lane is free, then step until every
-request is done.  Weights are random from ``--seed``.
+the absolute entropy threshold off (1e9).  Weights are random from
+``--seed``.  ``serve_fifo`` is the plain FIFO loop (admit while a lane is
+free, then step) that tests drive engines with.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Iterable, List, Tuple, Union
+from typing import Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -62,7 +74,7 @@ from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import (ContinuousEngine, Engine,
                                         PagedContinuousEngine, Request)
 from repro_torch.serving.sampling import SamplingParams
-from repro_torch.serving.scheduler import StaticScheduler
+from repro_torch.serving.scheduler import Scheduler, StaticScheduler
 
 LaneEngine = Union[ContinuousEngine, PagedContinuousEngine]
 
@@ -156,6 +168,19 @@ def summary_lines(engine: LaneEngine, done: List[Request],
     return lines
 
 
+def slo_line(sched: Scheduler) -> Optional[str]:
+    """The reference launcher's SLO line, printed when a request had a
+    deadline or a lane was preempted (None otherwise)."""
+    hits = [m["deadline_hit"] for m in sched.metrics.values()
+            if m["deadline_hit"] is not None]
+    if not hits and not sched.n_preemptions:
+        return None
+    rate = 100 * sum(hits) / len(hits) if hits else 100.0
+    return (f"slo: {sched.n_preemptions} preemptions  "
+            f"deadline hit rate {rate:.0f}% "
+            f"({sum(hits)}/{len(hits)} deadlined requests)")
+
+
 def ladder_line(engine: LaneEngine) -> str:
     """The reference launcher's robustness line under a stash budget: the
     chaos counters (zeros, no faults are injected), the ladder's rung
@@ -224,6 +249,26 @@ def main(argv=None):
                          "pressure rises (deny prefetch and trim resident "
                          "copies, then deepen freeze timers) and caps "
                          "swap-outs at the budget")
+    ap.add_argument("--priority", type=int, default=0,
+                    help="strict priority class of the submitted requests "
+                         "(0 = most important; a lane of a higher class "
+                         "can be preempted for a lower one)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="completion deadline of each request (ms after "
+                         "submission); deadlines order requests EDF within "
+                         "a class and arm preemption")
+    ap.add_argument("--slo-tps", type=float, default=None,
+                    help="decode-rate SLO (tokens/s), turned into a "
+                         "completion deadline per request")
+    ap.add_argument("--background", type=int, default=0,
+                    help="submit N priority-9 long greedy generations "
+                         "first (contention for preemption)")
+    ap.add_argument("--preempt", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="lane preemption: suspend a running lower-class "
+                         "lane (stashing its pages to the host on --paged) "
+                         "when a deadline would otherwise be missed "
+                         "(--no-preempt: admission reordering only)")
     ap.add_argument("--device", default="cuda",
                     help="torch device ('cuda' or 'cpu')")
     args = ap.parse_args(argv)
@@ -240,16 +285,15 @@ def main(argv=None):
     print(f"arch={cfg.name} params={n/1e6:.1f}M "
           f"freeze={not args.no_freeze} batching={mode} device={device}")
     rng = np.random.RandomState(args.seed)
-    reqs = [Request(uid, rng.randint(0, cfg.vocab_size,
-                                     size=rng.randint(16, 64)).astype(np.int32),
-                    args.tokens, SamplingParams(temperature=args.temperature))
-            for uid in range(args.requests)]
     if args.static:
         engine = Engine(cfg, params, max_seq=args.max_seq,
                         enable_freeze=not args.no_freeze, device=device)
         sched = StaticScheduler(engine, batch_size=args.batch)
-        for r in reqs:
-            sched.submit(r.prompt, r.n_tokens, r.sampling)
+        for _ in range(args.requests):
+            sched.submit(rng.randint(0, cfg.vocab_size,
+                                     size=rng.randint(16, 64)),
+                         args.tokens,
+                         SamplingParams(temperature=args.temperature))
         t0 = time.perf_counter()
         sched.run()
         print(served_line(list(sched.done.values()),
@@ -265,8 +309,24 @@ def main(argv=None):
                        stash_budget_bytes=budget, kv_quant=args.kv_quant)
     engine = (PagedContinuousEngine if args.paged else ContinuousEngine)(
         cfg, params, sv, device=device)
-    done, seconds = serve_fifo(engine, reqs)
+    sched = Scheduler(engine, preemption=args.preempt)
+    for _ in range(args.background):
+        sched.submit(rng.randint(0, cfg.vocab_size, size=32),
+                     max(args.tokens * 2, 64), SamplingParams.greedy(),
+                     priority=9)
+    for _ in range(args.requests):
+        sched.submit(rng.randint(0, cfg.vocab_size, size=rng.randint(16, 64)),
+                     args.tokens, SamplingParams(temperature=args.temperature),
+                     priority=args.priority, deadline_ms=args.deadline_ms,
+                     slo_tokens_per_s=args.slo_tps)
+    t0 = time.perf_counter()
+    sched.run()
+    seconds = time.perf_counter() - t0
+    done = list(sched.done.values())
     for line in summary_lines(engine, done, seconds, args.batch):
+        print(line)
+    line = slo_line(sched)
+    if line is not None:
         print(line)
 
 

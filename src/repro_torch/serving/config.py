@@ -17,8 +17,9 @@ speculative thaw staging following it (``speculative_thaw=None``) into
 engines serve every mode (the contiguous one in its host offload).
 ``stash_budget_bytes`` bounds the host stash and ``ladder`` (an
 ``engine.LadderConfig``, None for its defaults) sets the degradation
-ladder's thresholds; the engines apply its rungs 1-2 themselves.  Chaos injection is not ported and raises at
-construction.
+ladder's thresholds; the engines apply its rungs 1-2 themselves and
+the SLO scheduler (``serving/scheduler.py``) rungs 3-4.  Chaos injection
+is not ported and raises at construction.
 """
 from __future__ import annotations
 

@@ -33,7 +33,9 @@ Under ``stash_budget_bytes`` the host stash is capped (swap-outs and
 offloads past the budget are denied) and the degradation ladder
 (``LadderConfig``) reads its pressure: the paged engine stops staging and
 frees the host copies of resident pages at rung 1, and deepens the
-offloaded freeze timers at rung 2.
+offloaded freeze timers at rung 2; the SLO scheduler
+(``serving/scheduler.py``) throttles admissions at rung 3 and sheds a lane
+at rung 4.
 
 Both continuous engines carry the lane lifecycle a preempting scheduler
 drives: ``suspend_lane`` returns a ``LaneSnapshot`` and frees the lane,
@@ -94,29 +96,49 @@ class GenerationResult:
 
 
 class RequestStatus(str, enum.Enum):
-    """Request lifecycle status (the values the engines reach).  A ``str``
-    subclass: every value equals its string (``RequestStatus.COMPLETED ==
-    "completed"``).  ``CANCELLED`` is terminal for a request whose lane
-    was suspended and dropped (``cancel_lane``)."""
+    """Request lifecycle status.  A ``str`` subclass: every value equals
+    its string (``RequestStatus.COMPLETED == "completed"``).  Requests are
+    ``PENDING`` in flight (``SHED`` while parked by the ladder's load-shed
+    rung); retirement resolves to ``COMPLETED``, ``SHED_RESUMED``
+    (completed after at least one shed and resume) or ``QUARANTINED``.
+    ``CANCELLED`` is terminal for a request whose lane was suspended and
+    dropped (``cancel_lane``)."""
     PENDING = "pending"
+    SHED = "shed"
     COMPLETED = "completed"
+    SHED_RESUMED = "shed-resumed"
     QUARANTINED = "quarantined"
     CANCELLED = "cancelled"
 
     def __str__(self) -> str:
         return self.value
 
+    @property
+    def terminal(self) -> bool:
+        return self not in (RequestStatus.PENDING, RequestStatus.SHED)
+
 
 @dataclasses.dataclass
 class Request:
-    """One generation request, served in admission order."""
+    """One generation request.  ``priority`` is a strict class (0 = most
+    important; the SLO scheduler may preempt a running lane of a lower
+    class for it); ``deadline_ms`` (after submission) and
+    ``slo_tokens_per_s`` (a decode-rate SLO turned into a completion
+    deadline) order requests earliest-deadline-first within a class.  All
+    three default to "no SLO", under which the scheduler is plain FIFO.
+    ``tenant`` tags the request for tenancy accounting (tenancy itself
+    is not ported)."""
     uid: int
     prompt: np.ndarray            # (S,) int32
     n_tokens: int
     sampling: SamplingParams = SamplingParams()
+    priority: int = 0
+    deadline_ms: Optional[float] = None
+    slo_tokens_per_s: Optional[float] = None
     result: Optional[np.ndarray] = None
     telemetry: Optional[GenerationResult] = None
     status: RequestStatus = RequestStatus.PENDING
+    tenant: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -183,9 +205,11 @@ class LadderConfig:
        pressure clears.
     4. **shed** — a scheduler suspends the lowest-priority running lane.
 
-    The engines apply rungs 1-2; rungs 3-4 belong to an SLO scheduler,
-    which this package does not have yet, so ``ladder_throttle`` and
-    ``ladder_shed`` stay 0.
+    The engines apply rungs 1-2 themselves; ``serving/scheduler.py::
+    Scheduler`` applies rungs 3-4 (its ``_admit_free`` and ``_maybe_shed``)
+    and counts them in the engine's ``ladder_throttle`` and
+    ``ladder_shed``.  An engine driven without that scheduler never
+    throttles or sheds.
     """
     deny_prefetch: float = 0.60
     deepen_timers: float = 0.75
@@ -460,7 +484,11 @@ class _LaneEngineBase:
 
     @staticmethod
     def _finalize_status(req: Request) -> None:
-        if req.status == RequestStatus.PENDING:
+        """Map a retiring request's lifecycle status to its terminal value
+        (quarantine retirement overwrites it afterwards)."""
+        if req.status == RequestStatus.SHED:
+            req.status = RequestStatus.SHED_RESUMED
+        elif req.status == RequestStatus.PENDING:
             req.status = RequestStatus.COMPLETED
 
     def _quarantine_rewind(self, lane: int) -> bool:

@@ -53,14 +53,16 @@ def gauges(eng) -> Dict[str, Any]:
     the way)."""
     paged = hasattr(eng, "ctl")
     host = eng.ctl if paged else eng.offloader
-    assert host.stash_bytes == _store_bytes(host.store)
     fields = ("n_denied_offloads", "n_swap_out", "n_swap_in",
               "n_deepen_skips", "n_thaw", "n_thaw_remap", "n_trims",
               "n_quantized_pages") if paged else \
         ("n_denied_offloads", "n_offloads", "n_restores")
-    out = {f: getattr(host, f) for f in fields}
-    out.update(stash_bytes=host.stash_bytes,
-               peak_stash_bytes=eng.peak_stash_bytes,
+    out = {}
+    if host is not None:       # None: a contiguous engine without offload
+        assert host.stash_bytes == _store_bytes(host.store)
+        out = {f: getattr(host, f) for f in fields}
+        out["stash_bytes"] = host.stash_bytes
+    out.update(peak_stash_bytes=eng.peak_stash_bytes,
                ladder_stage=eng.ladder_stage,
                stash_pressure=eng.stash_pressure,
                admission_pressure=eng.admission_pressure,

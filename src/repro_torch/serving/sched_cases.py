@@ -1,0 +1,629 @@
+"""SLO-scheduler traces, and the lockstep that drives several schedulers
+through one: ``tests/test_torch_scheduler.py`` holds the port's
+``Scheduler`` against ``repro``'s with them, and ``chip_smoke.py`` the card
+against the CPU.
+
+A trace is a function of a ``SchedLockstep``.  It opens a set of
+schedulers (one a side, each over its own engine, each on its own
+``VirtualClock``) and issues scheduler calls through the lockstep
+(submit, step, run, cancel, pause, release, enqueue, adopt,
+extract_pending, and the queue's own pop and aging).  After every call
+the lockstep requires equal ``sched_gauges`` on every side: the queue in
+heap order, the ``metrics`` rows (their virtual times included), the
+finished requests' statuses and tokens, the preemption, veto and cancel
+counts, the step, suspend and resume EMAs, the engine's ladder counters
+and ``lifecycle_cases.gauges`` of the engine; and equal engine event
+logs.  Snapshots a call returns must be equal as
+``lifecycle_cases.same_snapshot`` compares them.
+
+The traces follow ``repro``'s ``tests/test_scheduling.py``
+(``TestSchedulerPolicy``) and ``tests/test_faults.py``'s throttle/shed
+test on the tiny model at f32, greedy, with the port's seed-0 weights on
+every side.  No trace reads the wall clock: each side's clock advances
+``TICK`` on every call, so the deadlines, the EMAs and the cost model see
+the same times on every side and in every run.
+
+A side is ``(engine module, make)``: ``make(spec, clock)`` builds a
+``Scheduler`` for a trace's ``spec`` (``port_side`` makes the port's on a
+device).  ``EXPECTED`` pins each trace's end, as the reference gives it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.serving import lifecycle_cases as LC
+
+VOCAB = 512                 # llama3-8b-tiny
+TICK = 1e-3                 # virtual seconds a clock call
+# tests/test_scheduling.py's tiny_f32 freeze, and test_faults.py's
+# pressure_cfg (chaos_cfg's aggressive freeze with recovery off)
+FREEZE = {
+    "plain": LC.FREEZE,
+    "pressure": dict(page_size=8, window=8, tau_mode="quantile",
+                     quantile=0.6, k_soft=0.7, recovery_enabled=False,
+                     entropy_abs_threshold=0.5, rewalk_tokens=6),
+}
+PAGED = LC.PAGED
+CONTIGUOUS = dict(n_lanes=2, max_seq=128)
+# test_faults.py's _mk with max_active_pages=4
+PRESSURE = dict(max_seq=256, n_lanes=2, max_active_pages=4,
+                prefill_chunk=16, rewind_cooldown=12, burst_prefill=False)
+SHED_LADDER = dict(deny_prefetch=2.0, deepen_timers=2.0,
+                   throttle_admissions=0.45, shed=0.6)
+LADDER_KEYS = ("ladder_deny", "ladder_deepen", "ladder_throttle",
+               "ladder_shed", "quarantine_rewinds", "quarantined")
+# the foreground's deadline in the preemption traces: its own service
+# (one prefill chunk and 6 decode steps) fits, a background's remaining
+# ~38 steps do not
+PREEMPT_DEADLINE_MS = 40.0
+
+
+class VirtualClock:
+    """Seconds that advance ``tick`` on every call, and by ``advance``."""
+
+    def __init__(self, tick: float = TICK):
+        self.n, self.tick, self.offset = 0, tick, 0.0
+
+    def __call__(self) -> float:
+        self.n += 1
+        return self.offset + self.n * self.tick
+
+    def advance(self, seconds: float) -> None:
+        self.offset += seconds
+
+
+def spec(engine: str, is_async: bool = True, freeze: str = "plain",
+         serving: Dict[str, Any] = None, **sched) -> Dict[str, Any]:
+    """A trace's scheduler: ``engine`` "paged", "contiguous" or "static"
+    (an ``Engine`` the scheduler wraps), its serving fields, and the
+    scheduler's keywords; ``ladder`` (thresholds) goes in ``serving``."""
+    base = {"paged": PAGED, "contiguous": CONTIGUOUS,
+            "static": dict(max_seq=96, enable_freeze=False)}[engine]
+    sv = dict(base, **(serving or {}))
+    if engine != "static":
+        sv["async_pipeline"] = is_async
+    return {"engine": engine, "freeze": freeze, "serving": sv,
+            "sched": sched}
+
+
+def _item_key(item) -> Tuple:
+    if hasattr(item, "stashed"):
+        return ("snapshot", item.req.uid, len(item.generated), item.started)
+    return ("request", item.uid)
+
+
+def sched_gauges(s) -> Dict[str, Any]:
+    """What schedulers in lockstep must agree on after every call."""
+    eng = s.engine
+    return {
+        "queue": [(p, dl, seq, _item_key(it)) for p, dl, seq, it in s.queue],
+        "metrics": {u: dict(m) for u, m in s.metrics.items()},
+        "done": {u: (str(r.status), None if r.result is None
+                     else list(map(int, r.result)))
+                 for u, r in s.done.items()},
+        "counts": (s.n_preemptions, s.n_preempt_skipped_cost,
+                   s.n_cancelled),
+        "emas": (s._step_s, s._suspend_s, s._resume_s),
+        "robust": {k: eng.robust[k] for k in LADDER_KEYS},
+        "engine": LC.gauges(eng),
+    }
+
+
+def _norm(out):
+    """A call's result as the sides must agree on it."""
+    if isinstance(out, list):
+        return [_norm(x) for x in out]
+    if isinstance(out, tuple):
+        return tuple(_norm(x) for x in out)
+    if hasattr(out, "stashed") or hasattr(out, "status"):
+        return _item_key(out)
+    return out
+
+
+class SchedLockstep:
+    """Schedulers driven by the same calls, one per side; ``check`` runs
+    after each call and appends the last side's gauges to ``calls``."""
+
+    def __init__(self, sides: Sequence[Tuple[Any, Callable]]):
+        self.mods = [m for m, _ in sides]
+        self.makers = [mk for _, mk in sides]
+        self.scheds: List = []
+        self.clocks: List[VirtualClock] = []
+        self.kept: Dict[str, List] = {}
+        self.calls: List[Dict[str, Any]] = []
+        self.opened: List = []      # the last side's scheduler of each open
+
+    @property
+    def sched(self):
+        """The last side's scheduler (every side agrees with it)."""
+        return self.scheds[-1]
+
+    def open(self, sp: Dict[str, Any]) -> None:
+        """A new scheduler (and engine) on every side, on fresh clocks."""
+        self.clocks = [VirtualClock() for _ in self.makers]
+        self.scheds = [mk(sp, c) for mk, c in zip(self.makers, self.clocks)]
+        self.opened.append(self.scheds[-1])
+        self.check("open")
+
+    def check(self, what: str) -> None:
+        g = [sched_gauges(s) for s in self.scheds]
+        for other in g[:-1]:
+            if other != g[-1]:
+                bad = [k for k in g[-1] if other[k] != g[-1][k]]
+                raise AssertionError(
+                    f"call {len(self.calls)} ({what}): sides differ in "
+                    f"{bad}: {[other[k] for k in bad]} vs "
+                    f"{[g[-1][k] for k in bad]}")
+        for s in self.scheds[:-1]:
+            assert s.engine.events == self.sched.engine.events, \
+                (len(self.calls), what)
+        self.calls.append(g[-1])
+
+    def _agree(self, outs: List, what: str):
+        for o in outs[:-1]:
+            assert _norm(o) == _norm(outs[-1]), (what, o, outs[-1])
+            if hasattr(o, "stashed"):
+                LC.same_snapshot(o, outs[-1])
+        self.check(what)
+        return outs
+
+    def _each(self, name: str, args) -> List:
+        """``name`` on every side's scheduler, the sides' results agreed;
+        a str in ``args`` names a kept per-side value."""
+        outs = [getattr(s, name)(*[self.kept[x][i] if isinstance(x, str)
+                                   else x for x in args])
+                for i, s in enumerate(self.scheds)]
+        return self._agree(outs, name)
+
+    def call(self, name: str, *args) -> Any:
+        """``name`` on every side; returns the last side's result."""
+        return self._each(name, args)[-1]
+
+    def keep(self, name: str, name_of_call: str, *args) -> Any:
+        """``call`` and keep every side's result under ``name``."""
+        self.kept[name] = self._each(name_of_call, args)
+        return self.kept[name][-1]
+
+    def submit(self, prompt: np.ndarray, n_tokens: int, **kw) -> int:
+        outs = [s.submit(prompt, n_tokens, m.SamplingParams.greedy(), **kw)
+                for s, m in zip(self.scheds, self.mods)]
+        return self._agree(outs, "submit")[-1]
+
+    def enqueue(self, uid: int, prompt: np.ndarray, n_tokens: int,
+                deadline_t: float = None, **kw) -> int:
+        """A pre-built ``Request`` on every side, queued keeping ``uid``."""
+        outs = [s.enqueue(m.Request(uid, np.asarray(prompt, np.int32),
+                                    n_tokens, m.SamplingParams.greedy(),
+                                    **kw), deadline_t)
+                for s, m in zip(self.scheds, self.mods)]
+        return self._agree(outs, "enqueue")[-1]
+
+    def advance(self, seconds: float) -> None:
+        for c in self.clocks:
+            c.advance(seconds)
+
+    def step(self) -> List[int]:
+        return self._agree([s.step() for s in self.scheds], "step")[-1]
+
+    def run(self) -> None:
+        """``Scheduler.run``, a step at a time."""
+        while self.sched.queue or self.sched.busy:
+            if not self.step() and not self.sched.busy:
+                break
+
+    def until(self, cond: Callable[[Any], bool]) -> None:
+        """Step until ``cond(scheduler)`` holds (read on the last side)."""
+        while not cond(self.sched):
+            assert self.sched.queue or self.sched.busy, "ran dry"
+            self.step()
+
+    def results(self) -> Dict[int, Tuple[str, List[int]]]:
+        return self.calls[-1]["done"]
+
+
+def _prompt(rng, n: int) -> np.ndarray:
+    return rng.randint(0, VOCAB, size=n).astype(np.int32)
+
+
+def _admits(s) -> List[int]:
+    return [e["uid"] for e in s.engine.events if e["event"] == "admit_start"]
+
+
+def trace_edf(d: SchedLockstep) -> None:
+    """Randomized EDF: pops come out ordered by (class, deadline,
+    submission) whatever the submission order."""
+    d.open(spec("paged"))
+    rng = np.random.RandomState(0)
+    for trial in range(30):
+        keys = []
+        for _ in range(12):
+            prio = int(rng.randint(0, 3))
+            dl = None if rng.rand() < 0.3 else float(rng.randint(1, 500))
+            uid = d.submit(np.array([1, 2, 3], np.int32), 4, priority=prio,
+                           deadline_ms=dl)
+            dt = d.sched.metrics[uid]["deadline_t"]
+            keys.append((prio, np.inf if dt is None else dt, uid))
+        popped = [d.call("_pop").uid for _ in range(12)]
+        assert popped == [u for _, _, u in sorted(keys)], trial
+
+
+def trace_fifo(d: SchedLockstep) -> None:
+    """One class, no deadline: admission in submission order and no
+    preemption, the old FIFO behaviour."""
+    d.open(spec("paged"))
+    rng = np.random.RandomState(1)
+    uids = [d.submit(_prompt(rng, 10), 6) for _ in range(5)]
+    d.run()
+    s = d.sched
+    assert _admits(s) == uids and s.n_preemptions == 0
+    for u in uids:
+        assert len(s.done[u].result) == 6
+        assert s.metrics[u]["deadline_hit"] is None
+
+
+def trace_priority(d: SchedLockstep) -> None:
+    """A higher class is admitted before earlier lower-class requests,
+    with no deadline set."""
+    d.open(spec("paged"))
+    rng = np.random.RandomState(2)
+    bg = [d.submit(_prompt(rng, 10), 12, priority=5) for _ in range(4)]
+    fg = d.submit(_prompt(rng, 10), 6, priority=0)
+    d.run()
+    admits = _admits(d.sched)
+    assert admits.index(fg) < admits.index(bg[2])
+    assert admits.index(fg) < admits.index(bg[3])
+
+
+def trace_aging(d: SchedLockstep) -> None:
+    """With ``aging_s`` a waiting request's class drops one level per
+    ``aging_s`` waited and its earlier submission wins the tie; without,
+    the younger higher class jumps it.  The promotion is floored at 0 and
+    leaves the raw class alone.  The aged queue is then served."""
+    rng = np.random.RandomState(8)
+    first = {}
+    for aging in (5.0, None):
+        d.open(spec("paged", aging_s=aging))
+        bg = d.submit(_prompt(rng, 8), 4, priority=5)
+        d.advance(26.0)                 # five aging boundaries: 5 -> 0
+        fg = d.submit(_prompt(rng, 8), 4, priority=0)
+        d.call("_apply_aging")
+        first[aging] = (d.call("_peek").uid, bg, fg)
+        d.run()
+        assert len(d.sched.done) == 2
+    assert first[5.0][0] == first[5.0][1]      # aged: the background
+    assert first[None][0] == first[None][2]    # plain: the foreground
+    d.open(spec("paged", aging_s=10.0))
+    uid = d.submit(_prompt(rng, 8), 4, priority=2)
+    req = d.sched.queue[0][-1]
+    got = []
+    for dt in (0.0, 9.0, 1.0, 1e6):
+        d.advance(dt)
+        got.append(d.call("_eff_priority", d.sched.queue[0][-1]))
+    assert got == [2, 2, 1, 0], got
+    assert d.sched.metrics[uid]["priority"] == 2 == req.priority
+    d.run()
+
+
+def _preempt(d: SchedLockstep, engine: str, is_async: bool) -> None:
+    """Two background hogs and a deadlined foreground: the foreground
+    preempts a hog, completes, and both hogs finish their full length."""
+    d.open(spec(engine, is_async))
+    rng = np.random.RandomState(3)
+    bg = [d.submit(_prompt(rng, 10), 48, priority=5) for _ in range(2)]
+    for _ in range(10):
+        d.step()
+    fg = d.submit(_prompt(rng, 8), 6, priority=0,
+                  deadline_ms=PREEMPT_DEADLINE_MS)
+    d.run()
+    s = d.sched
+    assert s.n_preemptions >= 1
+    assert sum(m["preempted"] for m in s.metrics.values()) >= 1
+    assert len(s.done[fg].result) == 6 and s.metrics[fg]["deadline_hit"]
+    for u in bg:
+        assert len(s.done[u].result) == 48
+
+
+def trace_preempt_paged_async(d):
+    _preempt(d, "paged", True)
+
+
+def trace_preempt_paged_sync(d):
+    _preempt(d, "paged", False)
+
+
+def trace_preempt_contiguous(d):
+    _preempt(d, "contiguous", True)
+
+
+def trace_static(d: SchedLockstep) -> None:
+    """A static ``Engine`` wrapped into a continuous one serves a trace."""
+    d.open(spec("static", batch_size=2))
+    rng = np.random.RandomState(4)
+    uids = [d.submit(_prompt(rng, 8), 8) for _ in range(3)]
+    d.run()
+    for u in uids:
+        assert len(d.sched.done[u].result) == 8
+
+
+def _min_left(s) -> int:
+    return min(l.request.n_tokens - len(l.generated)
+               for l in s.engine.lanes if l.request is not None)
+
+
+def trace_veto(d: SchedLockstep) -> None:
+    """The cost model: a first preemption on the contiguous engine seeds
+    the suspend and resume EMAs; a later urgent foreground that would gain
+    less than a suspend and a resume cost (the shortest lane has one token
+    left) is not allowed to preempt and waits for the lane to free."""
+    d.open(spec("contiguous"))
+    rng = np.random.RandomState(5)
+    bg = [d.submit(_prompt(rng, 10), 40, priority=5) for _ in range(2)]
+    for _ in range(5):
+        d.step()
+    fg1 = d.submit(_prompt(rng, 8), 6, priority=0, deadline_ms=1e-3)
+    d.until(lambda s: s._resume_s is not None)
+    assert d.sched.n_preemptions == 1 and fg1 in d.sched.done
+    d.until(lambda s: not s.queue and s.engine.n_active_lanes == 2
+            and _min_left(s) == 1)
+    fg2 = d.submit(_prompt(rng, 8), 6, priority=0, deadline_ms=1e-3)
+    d.run()
+    s = d.sched
+    assert s.n_preempt_skipped_cost >= 1 and s.n_preemptions == 1
+    assert s.preempt_cost_s() > 0.0
+    for u in bg + [fg1, fg2]:
+        assert str(s.done[u].status) == "completed"
+
+
+def _queued_snapshot(s) -> bool:
+    return any(hasattr(e[-1], "stashed") for e in s.queue)
+
+
+def trace_cancel(d: SchedLockstep) -> None:
+    """Cancel a queued request, a queued snapshot (its exported bytes
+    return) and a running lane; the rest completes."""
+    d.open(spec("paged"))
+    rng = np.random.RandomState(6)
+    bg = [d.submit(_prompt(rng, 20), 40, priority=5) for _ in range(2)]
+    queued = d.submit(_prompt(rng, 10), 8, priority=5)
+    for _ in range(6):
+        d.step()
+    assert d.call("cancel", queued)
+    fg = d.submit(_prompt(rng, 8), 12, priority=0, deadline_ms=1e-3)
+    d.until(_queued_snapshot)
+    victim = next(e[-1].req.uid for e in d.sched.queue
+                  if hasattr(e[-1], "stashed"))
+    assert d.calls[-1]["engine"]["exported_bytes"] > 0
+    assert d.call("cancel", victim)
+    assert d.calls[-1]["engine"]["exported_bytes"] == 0
+    running = next(u for u in bg if u != victim)
+    for _ in range(2):
+        d.step()
+    assert d.call("cancel", running)
+    assert not d.call("cancel", running)        # already finished
+    d.run()
+    s = d.sched
+    st = {u: str(s.done[u].status) for u in s.done}
+    assert st == {queued: "cancelled", victim: "cancelled",
+                  running: "cancelled", fg: "completed"}, st
+    assert len(s.done[queued].result) == 0
+    assert 0 < len(s.done[victim].result) < 40
+    assert s.n_cancelled == 3
+    assert d.calls[-1]["engine"]["exported_bytes"] == 0
+
+
+def trace_pause(d: SchedLockstep) -> None:
+    """Pause a running lane (suspended, held outside the queue) and a
+    queued request, serve on, and release both."""
+    d.open(spec("paged"))
+    rng = np.random.RandomState(7)
+    a = d.submit(_prompt(rng, 20), 30)
+    d.submit(_prompt(rng, 12), 20)
+    c = d.submit(_prompt(rng, 10), 10)
+    last = d.submit(_prompt(rng, 10), 6)
+    for _ in range(8):
+        d.step()
+    d.keep("paused", "pause", a)
+    assert d.kept["paused"][-1].started
+    d.keep("held", "pause", last)
+    for _ in range(5):
+        d.step()
+    assert a not in d.sched.done and c in {l.request.uid for l in
+                                           d.sched.engine.lanes
+                                           if l.request is not None}
+    d.call("release", "paused")
+    d.call("release", "held")
+    d.run()
+    assert len(d.sched.done) == 4
+    assert d.call("pause", a) is None           # finished: nothing to pause
+
+
+def trace_handoff(d: SchedLockstep) -> None:
+    """The router hooks: drain the queue (``extract_pending``), queue a
+    pre-built request keeping its uid (``enqueue``), adopt a paused
+    lane's snapshot and the drained entries back with their rows."""
+    d.open(spec("paged"))
+    rng = np.random.RandomState(10)
+    a = d.submit(_prompt(rng, 20), 24, priority=1)
+    d.submit(_prompt(rng, 12), 16, priority=1)
+    d.submit(_prompt(rng, 10), 8, priority=2)
+    d.submit(_prompt(rng, 10), 8, priority=0, deadline_ms=500.0)
+    for _ in range(3):
+        d.step()
+    d.keep("pending", "extract_pending")
+    assert not d.sched.queue and len(d.kept["pending"][-1]) == 2
+    assert d.enqueue(50, _prompt(rng, 10), 6, priority=1) == 50
+    d.keep("paused", "pause", a)
+    rows = [dict(s.metrics[a]) for s in d.scheds]
+    d.kept["row"] = rows
+    d.call("adopt", "paused", "row")
+    for i in range(2):
+        d.kept["item"] = [p[i][0] for p in d.kept["pending"]]
+        d.kept["row"] = [p[i][1] for p in d.kept["pending"]]
+        d.call("adopt", "item", "row")
+    d.run()
+    s = d.sched
+    assert len(s.done) == 5 and 50 in s.done
+    assert d.submit(_prompt(rng, 4), 2) == 51     # uids stay unique
+    d.run()
+
+
+def trace_shed(d: SchedLockstep) -> None:
+    """``test_faults.py``'s throttle/shed test: four requests unbounded,
+    then under a budget of 1.25x the unbounded stash peak with rungs 1-2
+    out of reach and throttle and shed armed low.  Both rungs fire, some
+    request retires ``shed-resumed``, the peak stays under the budget and
+    the tokens are the unbounded run's."""
+    lens = [(20, 28)] * 4
+
+    def serve(sp):
+        d.open(sp)
+        rng = np.random.RandomState(0)
+        uids = [d.submit(_prompt(rng, pl), n) for pl, n in lens]
+        d.run()
+        return [d.results()[u] for u in uids]
+
+    free = serve(spec("paged", freeze="pressure", serving=PRESSURE))
+    peak = d.sched.engine.peak_stash_bytes
+    budget = int(peak * 1.25) or 1
+    done = serve(spec("paged", freeze="pressure", serving=dict(
+        PRESSURE, stash_budget_bytes=budget, ladder=SHED_LADDER)))
+    rob = d.calls[-1]["robust"]
+    assert rob["ladder_throttle"] > 0 and rob["ladder_shed"] > 0, rob
+    assert any(st == "shed-resumed" for st, _ in done), done
+    assert all(st in ("completed", "shed-resumed") for st, _ in done)
+    assert d.sched.engine.peak_stash_bytes <= budget
+    assert [t for _, t in done] == [t for _, t in free]
+
+
+TRACES = {
+    "edf": trace_edf,
+    "fifo": trace_fifo,
+    "priority": trace_priority,
+    "aging": trace_aging,
+    "preempt_paged_async": trace_preempt_paged_async,
+    "preempt_paged_sync": trace_preempt_paged_sync,
+    "preempt_contiguous": trace_preempt_contiguous,
+    "static": trace_static,
+    "veto": trace_veto,
+    "cancel": trace_cancel,
+    "pause": trace_pause,
+    "handoff": trace_handoff,
+    "shed": trace_shed,
+}
+def _pin(calls, wall_step, counts, ladder, peak_exported, requests):
+    return dict(calls=calls, wall_step=wall_step, counts=counts,
+                ladder=ladder, peak_exported=peak_exported,
+                requests={u: list(r) for u, r in requests.items()})
+
+
+_C = "completed"
+# each trace's end (``end_counts``), as ``repro``'s scheduler gives it on
+# the port's seed-0 weights; requests: uid -> (status, tokens, token sum)
+EXPECTED = {
+    "edf": _pin(721, 0, [0, 0, 0], [0, 0], 0, {}),
+    "fifo": _pin(30, 15, [0, 0, 0], [0, 0], 0, {
+        1: (_C, 6, 1609), 2: (_C, 6, 1663), 3: (_C, 6, 1325),
+        4: (_C, 6, 1519), 5: (_C, 6, 2127)}),
+    "priority": _pin(42, 33, [0, 0, 0], [0, 0], 0, {
+        1: (_C, 12, 2497), 2: (_C, 12, 3308), 3: (_C, 12, 2819),
+        4: (_C, 12, 3272), 5: (_C, 6, 2026)}),
+    "aging": _pin(31, 3, [0, 0, 0], [0, 0], 0, {1: (_C, 4, 397)}),
+    "preempt_paged_async": _pin(60, 53, [1, 0, 0], [0, 0], 32768, {
+        1: (_C, 48, 11004), 2: (_C, 48, 9836), 3: (_C, 6, 990)}),
+    "preempt_paged_sync": _pin(58, 52, [1, 0, 0], [0, 0], 32768, {
+        1: (_C, 48, 11004), 2: (_C, 48, 9836), 3: (_C, 6, 990)}),
+    "preempt_contiguous": _pin(58, 53, [1, 0, 0], [0, 0], 0, {
+        1: (_C, 48, 12050), 2: (_C, 48, 11235), 3: (_C, 6, 938)}),
+    "static": _pin(20, 14, [0, 0, 0], [0, 0], 0, {
+        1: (_C, 8, 2610), 2: (_C, 8, 2440), 3: (_C, 8, 3053)}),
+    "veto": _pin(51, 45, [1, 1, 0], [0, 0], 0, {
+        1: (_C, 40, 10832), 2: (_C, 40, 8877), 3: (_C, 6, 1638),
+        4: (_C, 6, 2219)}),
+    "cancel": _pin(28, 14, [1, 0, 3], [0, 0], 16384, {
+        1: ("cancelled", 4, 669), 2: ("cancelled", 6, 1581),
+        3: ("cancelled", 0, 0), 4: (_C, 12, 2181)}),
+    "pause": _pin(56, 43, [0, 0, 0], [0, 0], 16384, {
+        1: (_C, 30, 7090), 2: (_C, 20, 4740), 3: (_C, 10, 2639),
+        4: (_C, 6, 1023)}),
+    "handoff": _pin(54, 34, [0, 0, 0], [0, 0], 0, {
+        1: (_C, 24, 5981), 2: (_C, 16, 3639), 3: (_C, 8, 1178),
+        4: (_C, 8, 2138), 50: (_C, 6, 1615), 51: (_C, 2, 347)}),
+    "shed": _pin(149, 74, [0, 0, 0], [19, 2], 81920, {
+        1: ("shed-resumed", 28, 7891), 2: (_C, 28, 7081),
+        3: (_C, 28, 7066), 4: ("shed-resumed", 28, 7204)}),
+}
+# the traces chip_smoke.py runs card against CPU: the policy and
+# preemption traces, and the throttle/shed trace
+CARD_TRACES = ("fifo", "priority", "preempt_paged_async",
+               "preempt_paged_sync", "preempt_contiguous", "shed")
+
+
+def end_counts(d: SchedLockstep) -> Dict[str, Any]:
+    """A trace's end as the tests pin it: calls made, decode steps of the
+    last session, preemptions, vetoes and cancels, the ladder counters,
+    the most bytes ever exported, and each request's status, token count
+    and token sum."""
+    last = d.calls[-1]
+    return {"calls": len(d.calls),
+            "wall_step": last["engine"]["wall_step"],
+            "counts": list(last["counts"]),
+            "ladder": [last["robust"][k] for k in ("ladder_throttle",
+                                                   "ladder_shed")],
+            "peak_exported": max(g["engine"]["exported_bytes"]
+                                 for g in d.calls),
+            "requests": {u: [st] + ([] if t is None else [len(t), sum(t)])
+                         for u, (st, t) in sorted(last["done"].items())}}
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def port_models(params_cpu=None, device="cpu"):
+    """The port's tiny f32 configs, one a freeze variant, and one set of
+    weights (``init_params`` at seed 0 unless ``params_cpu`` is given)
+    on ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+    base = get_config("llama3-8b-tiny")
+    cfgs = {name: dataclasses.replace(
+        base, dtype="float32",
+        freeze=dataclasses.replace(base.freeze, **fz))
+        for name, fz in FREEZE.items()}
+    if params_cpu is None:
+        params_cpu = MD.init_params(cfgs["plain"], 0, "cpu")
+    return cfgs, _to_device(params_cpu, device)
+
+
+def port_side(device="cpu", params_cpu=None):
+    """``(engine module, make)`` of the port on ``device``."""
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.config import ServingConfig
+    from repro_torch.serving.scheduler import Scheduler
+    cfgs, params = port_models(params_cpu, device)
+
+    def make(sp, clock):
+        cfg = cfgs[sp["freeze"]]
+        sv = dict(sp["serving"])
+        if sp["engine"] == "static":
+            eng = E.Engine(cfg, params, device=device, **sv)
+        else:
+            if sv.get("ladder") is not None:
+                sv["ladder"] = E.LadderConfig(**sv["ladder"])
+            cls = E.PagedContinuousEngine if sp["engine"] == "paged" \
+                else E.ContinuousEngine
+            eng = cls(cfg, params, ServingConfig(**sv), device=device)
+        return Scheduler(eng, clock=clock, **sp["sched"])
+
+    return E, make
+
+
+def run(name: str, sides) -> SchedLockstep:
+    d = SchedLockstep(sides)
+    TRACES[name](d)
+    return d

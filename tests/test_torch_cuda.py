@@ -3,8 +3,9 @@ attention, freeze-masked decode attention, the fused freeze update with
 its threshold, out of place and in place) against its plain PyTorch
 version on every contract case, each kernel's determinism (two calls on
 the same inputs, bit-identical), the freeze update's one launch a call,
-and the tiny paged and contiguous engines on the card going through the
-kernels.  They need a CUDA device and ``nvcc``; elsewhere they skip.  Run them on the card
+and the tiny paged and contiguous engines (a lifecycle trace and two SLO
+scheduler traces among them) on the card going through the kernels.  They
+need a CUDA device and ``nvcc``; elsewhere they skip.  Run them on the card
 with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
 import pytest
@@ -533,3 +534,20 @@ def test_tiny_lifecycle_trace_matches_cpu(card, arm):
             got["requests"]) == \
         (38, (20, 12), 16384,
          {1: ("completed", 32, 7095), 2: ("completed", 8, 2417)})
+
+
+@pytest.mark.parametrize("name", ["preempt_paged_async", "shed"])
+def test_tiny_scheduler_trace_matches_cpu(card, name):
+    """A scheduler trace of ``sched_cases`` (a deadline preemption through
+    ``admit_over``; the ladder's throttle and shed) on the card and on the
+    CPU call for call, one virtual clock a side, at the end counts
+    tests/test_torch_scheduler.py pins against ``repro``, through kernel 1
+    on every card step."""
+    from repro_torch.serving import sched_cases as SC
+    cfgs, params = SC.port_models()
+    K.paged_decode_attention_cuda.launches = 0
+    d = SC.run(name, [SC.port_side("cpu", params),
+                      SC.port_side(card, params)])
+    assert SC.end_counts(d) == SC.EXPECTED[name]
+    assert K.paged_decode_attention_cuda.launches == sum(
+        s.engine.wall_step for s in d.opened) * cfgs["plain"].num_layers

@@ -42,6 +42,25 @@ def test_import_pulls_in_no_jax_and_no_repro():
     assert res.returncode == 0, res.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.serving.scheduler",
+                                    "repro_torch.serving.sched_cases",
+                                    "repro_torch.launch.bench_sched"])
+def test_scheduler_modules_stand_alone(module):
+    """Each module of the SLO scheduler slice, imported alone, loads
+    neither JAX nor any module of the JAX package."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({module!r})
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
 def test_entry_points_raise_without_a_card():
     cfg = get_config("llama3-8b-tiny")
     if torch.cuda.is_available():

@@ -439,7 +439,8 @@ LADDER_LINE = re.compile(
 def test_launcher_prints_the_ladder_line(capsys, monkeypatch):
     """``--stash-budget-mb`` reaches the paged engine in bytes, and the
     summary prints the reference's ladder line with the engine's
-    numbers; without a budget there is no such line."""
+    numbers (the scheduler's throttle and shed counters included);
+    without a budget there is no such line."""
     built = []
 
     class Recorded(TE.PagedContinuousEngine):
@@ -458,7 +459,8 @@ def test_launcher_prints_the_ladder_line(capsys, monkeypatch):
     rs = eng.robust_snapshot()
     assert rs["stash_budget_bytes"] == int(0.3 * 2**20)
     assert tuple(map(int, lines[0].groups())) == (
-        0, 0, 0, rs["ladder_deny"], rs["ladder_deepen"], 0, 0,
+        0, 0, 0, rs["ladder_deny"], rs["ladder_deepen"],
+        rs["ladder_throttle"], rs["ladder_shed"],
         rs["peak_stash_bytes"], rs["stash_budget_bytes"])
     assert rs["ladder_deny"] > 0
     serve.main(args + ["--tokens", "8"])
