@@ -68,7 +68,14 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      CPU in lockstep on one virtual clock a side: tokens, ``metrics``
      rows, queue order, preemptions, ladder counters, engine gauges and
      events equal after every call, at the end counts
-     tests/test_torch_scheduler.py pins against ``repro``;
+     tests/test_torch_scheduler.py pins against ``repro``; fault
+     injection on the paged engine (``sched_cases.CHAOS_TRACES``: DMA
+     faults, a ring burst that trips the ring breaker, one and two
+     poisoned steps), async and sync, card and CPU in lockstep: tokens,
+     statuses, endpoint stats, injections, retries, breaker trips,
+     quarantine counters, ring depth and transfer counts equal after every
+     call, at the end counts tests/test_torch_faults.py pins against
+     ``repro``;
   5. main paths — llama3-8b at full published width and depth (bf16 random
      weights made on the card from a seed, once) serves 8 requests of 128
      new tokens through the paged engine and then through the contiguous
@@ -111,15 +118,24 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      deadlines from a calibrated step time: the SLO arm preempts through
      ``admit_over``, beats FIFO on foreground hit rate and p99, every
      request's tokens are identical in the two arms, kernel 1 launches
-     steps x 32 and ``exported_bytes`` ends at 0.
+     steps x 32 and ``exported_bytes`` ends at 0.  Faults at full width:
+     the paged engine in the main path's config serves its 8 requests
+     under rate faults on pull, push, ring and stage, a ring burst that
+     trips the ring breaker (the ring serves at depth 0 while it is open)
+     and one poisoned step on lane 0: retries and a trip, one quarantine
+     rewind and no retirement, every request complete, the 7 requests
+     not on the poisoned lane token-identical to the main path's async
+     serve, kernel 1 every step, ``exported_bytes`` 0.
      ``Engine.generate`` then runs the
      paper's Table-1 protocol (14-token prompt, 500 new tokens) with
      freeze off and on, ``launch/bench_async.py`` its smoke trace on
      the card (sync vs async paged engine, tiny model), and
      ``launch/bench_quant.py`` its needle smoke (the four quant criteria
-     of ``tools/check_bench.py``) and ``launch/bench_sched.py`` its
+     of ``tools/check_bench.py``), ``launch/bench_sched.py`` its
      mixed-SLO smoke on the real clock (``check_scheduling``'s criteria,
-     retraces aside; ``chiprun_out/bench_sched.json``);
+     retraces aside; ``chiprun_out/bench_sched.json``) and
+     ``launch/bench_chaos.py`` its three chaos scenarios (the 16 criteria
+     of ``check_chaos``; ``chiprun_out/bench_chaos.json``);
   6. kernel timing at the main-path shapes (the paged kernel at the P + S
      layout of the async main path and at P): device time per call from CUDA
      graph replay over rotated input copies (read from HBM, as in the
@@ -2481,6 +2497,158 @@ def phase_sched_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
     return launched
 
 
+def phase_chaos_reference(kernels):
+    """Fault injection on the tiny f32 model, greedy: the chaos traces of
+    ``serving/sched_cases.py`` (``tests/test_faults.py``'s rate-scheduled
+    DMA faults, a ring burst that trips the ring breaker, one and two
+    poisoned steps), async and sync, each on the CPU (plain versions) and
+    on the card (kernel 1) in lockstep, one virtual clock a side: tokens,
+    statuses, the endpoints' stats, injections by site, retries, breaker
+    trips, quarantine counters, ring depth and transfer counts equal after
+    every call, at the end counts tests/test_torch_faults.py pins against
+    ``repro``; each decode step launches kernel 1 once a layer."""
+    from repro_torch.serving import sched_cases as SC
+    cfgs, params_cpu = SC.port_models()
+    sides = [SC.port_side("cpu", params_cpu), SC.port_side("cuda",
+                                                           params_cpu)]
+    layers = cfgs["chaos"].num_layers
+    for name in SC.CHAOS_TRACES:
+        if name.startswith("chaos_clean"):
+            continue            # its end is pinned; the CPU test runs it
+        _reset_counts(kernels)
+        t0 = time.perf_counter()
+        d = SC.run(name, sides)
+        dt = time.perf_counter() - t0
+        launched = _read_counts(kernels)
+        got = SC.chaos_end_counts(d)
+        assert got == SC.CHAOS_EXPECTED[name], (name, got,
+                                                SC.CHAOS_EXPECTED[name])
+        steps = d.sched.engine.wall_step
+        want = {"paged_decode_attention": steps * layers,
+                "freeze_decode_attention": 0, "relevance_freeze_update": 0}
+        assert launched == want, (name, launched, want)
+        log(f"reference chaos {name}: tiny f32 greedy, card == CPU after "
+            f"each of {got['calls']} calls (tokens, statuses, endpoint "
+            f"stats, ring depth, transfers) in {dt:.1f}s; faults "
+            f"{got['chaos']}; requests {got['requests']}; kernel launches "
+            f"{launched}")
+
+
+def phase_bench_chaos(torch, kernels, card_line):
+    """``launch/bench_chaos.py`` at smoke scale on the card: the tiny f32
+    model through the paged engine under DMA faults, stash pressure and
+    poisoned steps; its own check holds it to ``tools/check_bench.py``'s
+    chaos criteria, and the summary and report go to
+    ``chiprun_out/bench_chaos.json``."""
+    from repro_torch.launch import bench_chaos
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    bench, report = bench_chaos.run_chaos(smoke=True, device="cuda",
+                                          seed=SEED)
+    dt = time.perf_counter() - t0
+    launched = _read_counts(kernels)["paged_decode_attention"]
+    (OUT_DIR / "bench_chaos.json").write_text(json.dumps(
+        dict(bench, card=card_line, report=report), indent=1))
+    for name, _ in bench_chaos.SCENARIOS:
+        assert "error" not in report[name], report[name]["error"]
+    bench_chaos.check(bench)
+    assert launched > 0, launched
+    d = report["dma_faults"]
+    log(f"bench_chaos smoke [{card_line}] on the card in {dt:.1f}s: all 16 "
+        f"check_chaos criteria hold; dma faults {d['injected_by_site']}, "
+        f"{d['retries']} retries, {d['breaker_trips']} breaker trips; "
+        f"ladder throttles {bench['ladder_throttles']}, sheds "
+        f"{bench['ladder_sheds']}; full-ladder denied offloads "
+        f"{bench['full_ladder_denied_offloads']}; {launched} kernel "
+        f"launches")
+
+
+# the full-width faulted serve: test_faults.py's dma rates, its ring
+# breaker settings with a ring burst on four consecutive pops, and one
+# poisoned step on lane 0 in the second wave of requests (the first wave
+# retires together, so no admission sees the poisoned lane's rewind)
+CHAOS_NAN_OP = 190
+CHAOS_RING_BURST = range(20, 24)
+
+
+def _chaos_main_config():
+    from repro_torch.serving.faults import ChaosConfig, FaultPlan
+    explicit = {("ring", i): FaultPlan(attempts=10)
+                for i in CHAOS_RING_BURST}
+    explicit[("nan", CHAOS_NAN_OP)] = FaultPlan(kind="nan", lane=0)
+    return ChaosConfig(seed=7, rates={"pull": 0.3, "push": 0.3, "ring": 0.2,
+                                      "stage": 0.5},
+                       max_retries=2, trip_after=2, cooldown_ops=6,
+                       explicit=explicit)
+
+
+def phase_chaos_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
+                          params, card_line, paged):
+    """Faults at full width: PagedContinuousEngine in the main path's
+    config (async, P = 8 + 3, chunk 256) serves its 8 requests under
+    ``_chaos_main_config``.  No exception; retries and a breaker trip; one
+    quarantine rewind and no retirement; every request completes; every
+    request but the one on lane 0 at the poisoned step token-identical to
+    the main path's async serve; kernel 1 launched 32 times a step;
+    ``exported_bytes`` 0 and an empty store at the end.  Returns kernel
+    1's launches."""
+    cfg = _full_width_config(launcher)
+    base = paged[MAIN_ARMS[0][0]]["tokens"]
+    sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, max_active_pages=8,
+                               prefill_chunk=256, seed=SEED,
+                               async_pipeline=True,
+                               chaos=_chaos_main_config())
+    engine = engine_mod.PagedContinuousEngine(cfg, params, sv, device="cuda")
+    assert engine.S_stage == 3
+    reqs = _requests(engine_mod, cfg, np.random.RandomState(SEED), range(8),
+                     128)
+    _reset_counts(kernels)
+    done, seconds, step_ms, _, _ = _fifo(torch, launcher, engine, reqs)
+    counts = _read_counts(kernels)
+    steps = engine.wall_step
+    rs = engine.robust_snapshot()
+    assert counts["paged_decode_attention"] == steps * cfg.num_layers, \
+        (counts, steps)
+    assert counts["freeze_decode_attention"] == 0 and \
+        counts["relevance_freeze_update"] == 0, counts
+    assert rs["retries"] > 0 and rs["breaker_trips"] >= 1, rs
+    assert engine.ep_ring.n_exhausted >= 1
+    assert (rs["quarantine_rewinds"], rs["quarantined"]) == (1, 0), rs
+    assert len(done) == 8 and all(
+        str(r.status) == "completed" and len(r.result) == 128 for r in done)
+    poisoned = [r for r in done if not np.isfinite(r.telemetry.entropy).all()]
+    assert len(poisoned) == 1, [r.uid for r in poisoned]
+    victim = poisoned[0].uid
+    lane0 = [e["uid"] for e in engine.events
+             if e["event"] == "admit" and e["lane"] == 0]
+    assert victim in lane0, (victim, lane0)
+    for r in done:
+        if r.uid != victim:
+            i = _first_divergence(r.result, base[r.uid])
+            assert i is None, f"chaos request {r.uid}: tokens diverge from " \
+                              f"the main serve's at {i}"
+    same = int(np.sum(poisoned[0].result == base[victim]))
+    assert rs["exported_bytes"] == 0
+    assert not engine.ctl.store and not engine.ctl.frozen_meta
+    eps = {k: {f: v for f, v in e.items() if v}
+           for k, e in rs["endpoints"].items()}
+    launched = counts["paged_decode_attention"]
+    log(f"main path chaos [{card_line}], async, no profiler: {steps} decode "
+        f"steps in {seconds:.2f} s (median step "
+        f"{statistics.median(step_ms):.2f} ms); {launched} kernel launches "
+        f"= steps x {cfg.num_layers}; injected "
+        f"{rs['injected']} {rs['injected_by_site']}, retries {rs['retries']}, "
+        f"breaker trips {rs['breaker_trips']}, endpoints {eps}; quarantine "
+        f"rewinds {rs['quarantine_rewinds']}, quarantined "
+        f"{rs['quarantined']}; poisoned request {victim} on lane 0 "
+        f"completed ({same} of 128 tokens equal to the main serve's), the 7 "
+        f"others token-identical to it; ring depth "
+        f"{engine.ring.depth} at the end; exported_bytes 0, store empty")
+    del engine
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     name, count, card_line = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
@@ -2517,6 +2685,7 @@ def main() -> int:
                                      cfg_mod)
     phase_lifecycle_reference(K, MD, engine_mod, cfg_mod)
     phase_sched_reference(kernels)
+    phase_chaos_reference(kernels)
     cfg = _full_width_config(launcher)
     t0 = time.perf_counter()
     params = MD.init_params(cfg, SEED, "cuda")
@@ -2544,12 +2713,16 @@ def main() -> int:
     sched_launches = phase_sched_main_path(torch, kernels, launcher,
                                            engine_mod, cfg_mod, params,
                                            card_line)
+    chaos_launches = phase_chaos_main_path(torch, kernels, launcher,
+                                           engine_mod, cfg_mod, params,
+                                           card_line, paged)
     phase_table1(torch, kernels, launcher, engine_mod, params, card_line)
     del params
     torch.cuda.empty_cache()
     phase_bench_async(torch, kernels, card_line)
     phase_bench_quant(torch, kernels, card_line)
     phase_bench_sched(torch, kernels, card_line)
+    phase_bench_chaos(torch, kernels, card_line)
     # kernel 1 at the main path's staged layout (P + S, S reserved; the
     # kernels line) and at the plain P layout of the --no-async arm
     plain_case, staged_case, S = C.staged_layout_pair()
@@ -2572,6 +2745,7 @@ def main() -> int:
              launches_lifecycle_serves=lifecycle["paged"][
                  "paged_decode_attention"],
              launches_sched_serves=sched_launches,
+             launches_chaos_serve=chaos_launches,
              max_abs_err=err, ms=ms, plain_ms=plain_ms,
              bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
              **{f"{k}_{mode}_pages": v for mode, t in quant_t.items()

@@ -24,6 +24,8 @@ engines, on the card unless ``--device cpu`` is given:
         --device cpu --stash-budget-mb 0.25
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged \
         --device cpu --background 2 --deadline-ms 500 --priority 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged \
+        --device cpu --chaos-seed 3 --chaos-rate 0.2
 
 Both continuous engines run the async DMA pipeline by default (the
 per-step fetch is consumed one call later; on ``--paged`` likely thaws are
@@ -40,7 +42,13 @@ reference launcher does.
 ``--stash-budget-mb`` bounds the host stash: the ladder's rungs engage as
 stash pressure rises (the engine's rungs 1-2, the scheduler's throttle
 and shed), and a ``chaos: ... ladder: ...`` line reports their counters
-and the stash peak against the budget.
+and the stash peak against the budget.  ``--chaos-seed`` injects faults
+at ``--chaos-rate`` into the paged engine's pull, push, ring and stage
+transfers (``serving/faults.py``): they are retried, an endpoint that
+keeps failing trips its breaker and its mode degrades, and the same
+``chaos:`` line reports the injections, retries and trips.  The
+contiguous mode refuses it (ROADMAP item 9d-ii); ``--static`` ignores it,
+as the reference launcher does.
 
 Both continuous modes serve through the SLO ``Scheduler``: strict
 ``--priority`` classes, earliest deadline first within a class
@@ -73,6 +81,7 @@ from repro_torch.models import model as MD
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import (ContinuousEngine, Engine,
                                         PagedContinuousEngine, Request)
+from repro_torch.serving.faults import ChaosConfig
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Scheduler, StaticScheduler
 
@@ -148,13 +157,13 @@ def summary_lines(engine: LaneEngine, done: List[Request],
                      f"{off.n_restores} restored, {off.moved_bytes} bytes "
                      f"moved, stash {off.stash_bytes} bytes")
     s = engine.stats
-    mode = "async" if engine.ring.depth else "sync"
+    mode = "async" if engine.async_pipeline else "sync"
     lines.append(f"dma: host-blocked {100 * s.host_blocked_fraction:.0f}% of "
                  f"steps ({s.blocked_steps}/{s.steps}; {mode} pipeline)  "
                  f"blocking {s.blocking_d2h} D2H / {s.blocking_h2d} H2D  "
                  f"async {s.async_d2h} D2H / {s.async_h2d} H2D  "
                  f"blocked_s {s.blocked_s:.4f}  waited_s {s.waited_s:.4f}")
-    if engine.stash_budget_bytes is not None:
+    if engine.chaos is not None or engine.stash_budget_bytes is not None:
         lines.append(ladder_line(engine))
     if engine.fcfg.recovery_enabled:
         rewinds = sum(r.telemetry.rewinds for r in done
@@ -182,9 +191,9 @@ def slo_line(sched: Scheduler) -> Optional[str]:
 
 
 def ladder_line(engine: LaneEngine) -> str:
-    """The reference launcher's robustness line under a stash budget: the
-    chaos counters (zeros, no faults are injected), the ladder's rung
-    counters, and the stash peak against the budget."""
+    """The reference launcher's robustness line under chaos or a stash
+    budget: the fault counters (injections, retries, breaker trips), the
+    ladder's rung counters, and the stash peak against the budget."""
     rs = engine.robust_snapshot()
     line = (f"chaos: injected={rs['injected']} retries={rs['retries']} "
             f"breaker_trips={rs['breaker_trips']}  "
@@ -249,6 +258,13 @@ def main(argv=None):
                          "pressure rises (deny prefetch and trim resident "
                          "copies, then deepen freeze timers) and caps "
                          "swap-outs at the budget")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="deterministic fault injection on --paged's "
+                         "pull, push, ring and stage transfers with this "
+                         "seed (retries, breaker fallbacks; the contiguous "
+                         "mode refuses it, ROADMAP item 9d-ii)")
+    ap.add_argument("--chaos-rate", type=float, default=0.05,
+                    help="per-site fault rate for --chaos-seed")
     ap.add_argument("--priority", type=int, default=0,
                     help="strict priority class of the submitted requests "
                          "(0 = most important; a lane of a higher class "
@@ -274,6 +290,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.static and args.paged:
         ap.error("--static and --paged are two different engines")
+    if args.chaos_seed is not None and not (args.paged or args.static):
+        ap.error("chaos on the contiguous engine is ROADMAP item 9d-ii")
 
     device = resolve_device(args.device)
     cfg = launcher_config(args.arch, args.tiny, args.quantile_tau,
@@ -301,12 +319,18 @@ def main(argv=None):
         return
     budget = int(args.stash_budget_mb * 2**20) \
         if args.stash_budget_mb is not None else None
+    chaos = None
+    if args.chaos_seed is not None:
+        chaos = ChaosConfig(seed=args.chaos_seed,
+                            rates={s: args.chaos_rate for s in
+                                   ("pull", "push", "ring", "stage")})
     sv = ServingConfig(max_seq=args.max_seq, n_lanes=args.batch,
                        enable_freeze=not args.no_freeze,
                        prefill_chunk=args.prefill_chunk,
                        max_active_pages=args.pages if args.paged else None,
                        seed=args.seed, async_pipeline=args.async_pipeline,
-                       stash_budget_bytes=budget, kv_quant=args.kv_quant)
+                       chaos=chaos, stash_budget_bytes=budget,
+                       kv_quant=args.kv_quant)
     engine = (PagedContinuousEngine if args.paged else ContinuousEngine)(
         cfg, params, sv, device=device)
     sched = Scheduler(engine, preemption=args.preempt)

@@ -18,8 +18,9 @@ engines serve every mode (the contiguous one in its host offload).
 ``stash_budget_bytes`` bounds the host stash and ``ladder`` (an
 ``engine.LadderConfig``, None for its defaults) sets the degradation
 ladder's thresholds; the engines apply its rungs 1-2 themselves and
-the SLO scheduler (``serving/scheduler.py``) rungs 3-4.  Chaos injection
-is not ported and raises at construction.
+the SLO scheduler (``serving/scheduler.py``) rungs 3-4.  ``chaos`` (a
+``faults.ChaosConfig``) injects faults into the paged engine's guarded
+transfers; the contiguous engine refuses it (ROADMAP item 9d-ii).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Any, Optional
 
 from repro_torch.configs.base import FreezeConfig
 from repro_torch.core import quant
+from repro_torch.serving.faults import ChaosConfig
 
 
 @dataclasses.dataclass
@@ -44,7 +46,7 @@ class ServingConfig:
     min_prompt_bucket: int = 8
     # ---- pipeline + robustness ---- #
     async_pipeline: bool = True
-    chaos: Optional[Any] = None
+    chaos: Optional[ChaosConfig] = None
     stash_budget_bytes: Optional[int] = None
     ladder: Optional[Any] = None                # engine.LadderConfig
     quarantine_window: int = 64
@@ -65,8 +67,6 @@ class ServingConfig:
     burst_prefill: bool = True
 
     def __post_init__(self):
-        if self.chaos is not None:
-            raise NotImplementedError("chaos injection is not ported yet")
         quant.resolve_mode(self.kv_quant)
 
     def replace(self, **kw) -> "ServingConfig":

@@ -141,13 +141,23 @@ class FetchRing:
     entry; ``pop`` waits on that event (timed as ``waited_s``) and returns
     the buffers to the pool.  Depth 1 on the CPU copies at push time.
     Either way the pop is an *async* transfer.  Depth 0 pops with a
-    blocking copy."""
+    blocking copy.
 
-    def __init__(self, stats: TransferStats, depth: int = 0, device=None):
+    ``endpoint`` (a ``faults.Endpoint``, the ``ring`` injection point)
+    guards each pop's materialisation: the wait for the entry's copy, the
+    copy out and the return of its pinned buffers run inside the function
+    the endpoint calls, so they run once however many injected attempts
+    fail.  The engine drops ``depth`` to 0 while that endpoint's breaker
+    is open; the FIFO drain keeps the fallback token-identical, and a pop
+    is tallied as blocking or async by the depth at the pop."""
+
+    def __init__(self, stats: TransferStats, depth: int = 0, device=None,
+                 endpoint: Optional[Any] = None):
         if depth not in (0, 1):
             raise ValueError("the pipeline is single- or double-buffered")
         self.stats = stats
         self.depth = depth
+        self.endpoint = endpoint
         self.device = torch.device("cpu" if device is None else device)
         self._stream: Optional[torch.cuda.Stream] = None
         self._free: Dict[Tuple, List[torch.Tensor]] = {}   # pinned buffers
@@ -202,7 +212,12 @@ class FetchRing:
             return None
         meta, arrays, done = self._entries.pop(0)
         t0 = time.perf_counter()
-        if done is not None:
+
+        def _materialize():
+            if done is None:        # a depth-0 entry, or copied at push
+                return {k: v.detach().cpu().numpy()
+                        if isinstance(v, torch.Tensor) else np.asarray(v)
+                        for k, v in arrays.items()}
             done.synchronize()
             host = {k: b.numpy().copy() if isinstance(b, torch.Tensor)
                     else b for k, b in arrays.items()}
@@ -210,12 +225,10 @@ class FetchRing:
                 if isinstance(b, torch.Tensor):
                     self._free.setdefault((tuple(b.shape), b.dtype),
                                           []).append(b)
-        elif self.depth == 0:
-            host = {k: v.detach().cpu().numpy()
-                    if isinstance(v, torch.Tensor) else np.asarray(v)
-                    for k, v in arrays.items()}
-        else:
-            host = arrays
+            return host
+
+        host = self.endpoint.call(_materialize) \
+            if self.endpoint is not None else _materialize()
         dt = time.perf_counter() - t0
         nbytes = sum(_nbytes(v) for v in host.values())
         if self.depth == 0:

@@ -37,6 +37,17 @@ offloaded freeze timers at rung 2; the SLO scheduler
 (``serving/scheduler.py``) throttles admissions at rung 3 and sheds a lane
 at rung 4.
 
+Under ``ServingConfig.chaos`` (a ``faults.ChaosConfig``) the paged engine
+runs its guarded operations through ``faults.Endpoint``s sharing one
+injector: the boundary tick's pull and push, each fetch-ring pop, each
+speculative staging upload (best-effort: a failed one is skipped) and each
+new host-stash allocation (best-effort: the page stays resident).  An open
+ring breaker drops the ring to depth 0 (``_ring_guard``), an open stage
+breaker stops staging, and a scheduled ``nan`` poisons one lane's entropy
+at the commit, which the quarantine rewinds once and retires on a second
+hit within ``quarantine_window``.  The contiguous engine refuses a chaos
+config (ROADMAP item 9d-ii).
+
 Both continuous engines carry the lane lifecycle a preempting scheduler
 drives: ``suspend_lane`` returns a ``LaneSnapshot`` and frees the lane,
 ``resume_lane`` brings it back on any free lane (the paged engine by
@@ -67,6 +78,7 @@ from repro_torch.device import (from_host, host_values, host_view,
 from repro_torch.models import model as MD
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.dma import FetchRing, HostStaging, TransferStats
+from repro_torch.serving.faults import FAILED, Endpoint
 from repro_torch.serving.sampling import (SamplingParams, lane_base_seed,
                                           sample, sample_batched_perlane)
 
@@ -392,6 +404,26 @@ class _LaneEngineBase:
         self.peak_kv_bytes = 0      # high-water device KV (incl. prefill
                                     # scratch) — the memory metric
         self.stats = TransferStats()
+        # fault tolerance (``serving/faults.py``): one injector (per-site op
+        # clocks shared by every endpoint) and an endpoint per guarded
+        # transfer class; pull, push and ring must succeed (the data has
+        # to move), stage is best-effort (a failed staging upload falls
+        # back to the thaw's upload path).  None without a chaos config
+        self.chaos = sv.chaos
+        self._endpoints: Dict[str, Endpoint] = {}
+        if sv.chaos is not None:
+            self.injector = sv.chaos.build_injector()
+            self.ep_pull = sv.chaos.build_endpoint("pull", self.injector)
+            self.ep_push = sv.chaos.build_endpoint("push", self.injector)
+            self.ep_ring = sv.chaos.build_endpoint("ring", self.injector)
+            self.ep_stage = sv.chaos.build_endpoint("stage", self.injector,
+                                                    must_succeed=False)
+            self._endpoints = {"pull": self.ep_pull, "push": self.ep_push,
+                               "ring": self.ep_ring, "stage": self.ep_stage}
+        else:
+            self.injector = None
+            self.ep_pull = self.ep_push = None
+            self.ep_ring = self.ep_stage = None
         # host-stash budget and its degradation ladder (``LadderConfig``)
         self.stash_budget_bytes = sv.stash_budget_bytes
         self.ladder_cfg = sv.ladder or LadderConfig()
@@ -404,8 +436,9 @@ class _LaneEngineBase:
         self.robust = {"quarantine_rewinds": 0, "quarantined": 0,
                        "ladder_deny": 0, "ladder_deepen": 0,
                        "ladder_throttle": 0, "ladder_shed": 0}
+        self.async_pipeline = sv.async_pipeline
         self.ring = FetchRing(self.stats, depth=1 if sv.async_pipeline else 0,
-                              device=self.device)
+                              device=self.device, endpoint=self.ep_ring)
         self.staging = HostStaging(pinned=self.device.type == "cuda")
         self._retired_backlog: List[Request] = []   # retired during admit
                                     # drains; reported by the next step_once
@@ -464,16 +497,41 @@ class _LaneEngineBase:
         self.peak_stash_bytes = max(self.peak_stash_bytes,
                                     self._stash_bytes())
 
+    def _ring_guard(self) -> None:
+        """Drop the fetch ring to depth 0 (the synchronous baseline) while
+        the ring endpoint's breaker is open, and restore depth 1 once it
+        re-closes.  Depth changes which call drains an entry, never the
+        FIFO order, so the fallback is token-identical."""
+        ep = self.ring.endpoint
+        if ep is None or ep.breaker is None:
+            return
+        if ep.breaker.state == "open":
+            ep.allow()          # burn one op of the op-count cooldown
+        self.ring.depth = 1 if (self.async_pipeline
+                                and ep.breaker.state == "closed") else 0
+
+    def _poison_lane(self, active: List[int]) -> Optional[int]:
+        """Consult the schedule's ``nan`` site for this decode step: the
+        lane whose entropy the commit poisons, or None.  The commit is
+        where a poisoned step's entropy first reaches the host."""
+        if self.injector is None or not active:
+            return None
+        plan = self.injector.next_plan("nan")
+        if plan is None or plan.kind != "nan":
+            return None
+        return plan.lane if plan.lane in active else active[0]
+
     def robust_snapshot(self) -> Dict[str, Any]:
-        """Fault, ladder and quarantine counters for serving reports.  The
-        port injects no faults yet, so the chaos keys report zeros, as a
-        chaos-less engine of the reference does."""
+        """Fault, ladder and quarantine counters for serving reports (a
+        chaos-less engine reports zeros)."""
+        eps = {name: ep.stats() for name, ep in self._endpoints.items()}
         return {
-            "endpoints": {},
-            "injected": 0,
-            "injected_by_site": {},
-            "retries": 0,
-            "breaker_trips": 0,
+            "endpoints": eps,
+            "injected": self.injector.n_injected if self.injector else 0,
+            "injected_by_site":
+                dict(self.injector.injected) if self.injector else {},
+            "retries": sum(e["retries"] for e in eps.values()),
+            "breaker_trips": sum(e["breaker_trips"] for e in eps.values()),
             "ladder_stage": self.ladder_stage,
             "stash_bytes": self._stash_bytes(),
             "exported_bytes": self._exported_bytes(),
@@ -532,6 +590,20 @@ class _LaneEngineBase:
     @property
     def has_free_lane(self) -> bool:
         return any(l.request is None for l in self.lanes)
+
+    def health(self) -> Dict[str, Any]:
+        """Liveness and occupancy for a replica router's placement and
+        heartbeat: host gauges only, no device sync."""
+        return {
+            "wall_step": self.wall_step,
+            "n_lanes": self.n_lanes,
+            "n_active_lanes": self.n_active_lanes,
+            "has_free_lane": self.has_free_lane,
+            "admission_pressure": self.admission_pressure,
+            "ladder_stage": self.ladder_stage,
+            "active_uids": sorted(l.request.uid for l in self.lanes
+                                  if l.request is not None),
+        }
 
     def _free_lane(self) -> int:
         for i, l in enumerate(self.lanes):
@@ -732,6 +804,9 @@ class ContinuousEngine(_LaneEngineBase):
 
     def __init__(self, cfg: ModelConfig, params, serving: ServingConfig,
                  device=None):
+        if serving.chaos is not None:
+            raise NotImplementedError(
+                "chaos on the contiguous engine is ROADMAP item 9d-ii")
         super().__init__(cfg, params, serving, device)
         sv = serving
         self.kv_quant = sv.kv_quant
@@ -1117,6 +1192,13 @@ class PagedContinuousEngine(_LaneEngineBase):
                                    max_active_pages=self.P)
         self.ctl.kv_quant = sv.kv_quant
         self.ctl.stash_budget_bytes = sv.stash_budget_bytes
+        if self.injector is not None:
+            self.ep_stash = sv.chaos.build_endpoint(
+                "stash", self.injector, must_succeed=False)
+            self.ctl.stash_endpoint = self.ep_stash
+            self._endpoints["stash"] = self.ep_stash
+        else:
+            self.ep_stash = None
         # under a quant mode the controller computes on K/V values: a bf16
         # pool's K/V reach it as f32 values and come back rounded to bf16
         # (exact for every payload and every value read from the pool)
@@ -1187,13 +1269,19 @@ class PagedContinuousEngine(_LaneEngineBase):
 
     def _pull_lanes(self, lanes: List[int]) -> Tuple[dict, dict]:
         m = len(lanes)
-        idx = torch.as_tensor(lanes, device=self.device)
-        self._await_uploads()
+
+        # the one batched pull of the tick; under chaos the pull endpoint
+        # fronts it, and injected failures are retried before it runs
+        def _fetch():
+            idx = torch.as_tensor(lanes, device=self.device)
+            self._await_uploads()
+            return {name: self.staging.pull(
+                f"pull_{name}_{m}", self._state_field(name).index_select(
+                    1, idx)) for name in self._POOL_FIELDS + self._FZ_FIELDS}
+
         t0 = time.perf_counter()
-        out = {}
-        for name in self._POOL_FIELDS + self._FZ_FIELDS:
-            lane_slice = self._state_field(name).index_select(1, idx)
-            out[name] = self.staging.pull(f"pull_{name}_{m}", lane_slice)
+        out = self.ep_pull.call(_fetch) if self.ep_pull is not None \
+            else _fetch()
         dt = time.perf_counter() - t0
         self.stats.note_blocking(sum(a.nbytes for a in out.values())
                                  - self._quant_packing_savings(out),
@@ -1209,18 +1297,28 @@ class PagedContinuousEngine(_LaneEngineBase):
                     kv: bool = True) -> None:
         """Write the lanes' host slices back into the device state IN
         PLACE (``index_copy_`` along the lane axis)."""
-        idx = torch.as_tensor(lanes, device=self.device)
         if kv:
             self.n_kv_pushes += 1
-        self._await_uploads()
         fields = (self._POOL_FIELDS + self._FZ_FIELDS) if kv \
             else self._META_FIELDS
-        nbytes = 0
-        for f in fields:
-            src = pool[f] if f in pool else fstate[f]
-            dst = self._state_field(f)
-            dst.index_copy_(1, idx, from_host(src, dst.dtype, self.device))
-            nbytes += src.size * dst.element_size()
+
+        # the dispatch runs once per endpoint call: injected failures are
+        # retried before it, so no copy is issued twice
+        def _dispatch():
+            idx = torch.as_tensor(lanes, device=self.device)
+            self._await_uploads()
+            for f in fields:
+                dst = self._state_field(f)
+                dst.index_copy_(1, idx, from_host(
+                    pool[f] if f in pool else fstate[f], dst.dtype,
+                    self.device))
+
+        if self.ep_push is not None:
+            self.ep_push.call(_dispatch)
+        else:
+            _dispatch()
+        nbytes = sum((pool[f] if f in pool else fstate[f]).size
+                     * self._state_field(f).element_size() for f in fields)
         if kv:
             nbytes -= self._quant_packing_savings(pool)
             self.stats.note_blocking(nbytes, d2h=False)
@@ -1413,6 +1511,7 @@ class PagedContinuousEngine(_LaneEngineBase):
         ring the fetch is drained in this call.  Returns the requests that
         retired."""
         self.stats.begin_step()
+        self._ring_guard()
         finished = self._retired_backlog + self._drain_ring()
         self._retired_backlog = []
         decode_lanes = [i for i, l in enumerate(self.lanes)
@@ -1444,7 +1543,8 @@ class PagedContinuousEngine(_LaneEngineBase):
             arrays["toks"] = sample_batched_perlane(
                 logits, self.lane_seeds, self.step, self._temp, self._topk,
                 self._topp)
-            self.ring.push({"kind": "step", "active": list(decode_lanes)},
+            self.ring.push({"kind": "step", "active": list(decode_lanes),
+                            "poison": self._poison_lane(decode_lanes)},
                            arrays)
             # stage likely-thaw pages while the step computes: by the time
             # an FR thaw reaches a boundary tick they install as remaps
@@ -1517,6 +1617,12 @@ class PagedContinuousEngine(_LaneEngineBase):
         act, fro = get("n_active_slots_lane"), get("n_frozen_pages_lane")
         entropy, spike, level = get("entropy"), get("spike"), get("level")
         rr, thaw_req = get("rr_request"), get("thaw_request")
+        poison = meta.get("poison")
+        if poison is not None and entropy is not None:
+            # a scheduled logits anomaly, injected on a host copy of the
+            # entropy: where the poisoned step first reaches the host
+            entropy = np.array(entropy, np.float32)
+            entropy[poison] = np.nan
 
         for i in decode_lanes:
             res = self.lanes[i].request.telemetry
@@ -1668,6 +1774,10 @@ class PagedContinuousEngine(_LaneEngineBase):
             # (thaws fall back to the upload path, token-identically)
             self.robust["ladder_deny"] += 1
             return
+        if self.ep_stage is not None and not self.ep_stage.allow():
+            # an open stage breaker: no staging until its cooldown
+            # re-closes it (thaws upload, token-identically)
+            return
         cands = [i for i in decode_lanes
                  if i in self.pending_thaws or self._urgency[i] >= WR]
         cands.sort(key=lambda i: (i not in self.pending_thaws,
@@ -1726,7 +1836,14 @@ class PagedContinuousEngine(_LaneEngineBase):
                 slots.append(avail[0])
             if not layers:
                 continue
-            self._stage_write(lane, layers, slots, k_name, v_name)
+            # best-effort: a FAILED stage leaves the pool and the staged
+            # keys untouched, and the next staging reuses these buffers
+            if self.ep_stage is not None:
+                if self.ep_stage.call(self._stage_write, lane, layers, slots,
+                                      k_name, v_name) is FAILED:
+                    return False
+            else:
+                self._stage_write(lane, layers, slots, k_name, v_name)
             self._n_staged += 1
             for l, slot in zip(layers, slots):
                 self.ctl.staged_keys[(l, lane, gid)] = slot

@@ -19,13 +19,21 @@ logs.  Snapshots a call returns must be equal as
 The traces follow ``repro``'s ``tests/test_scheduling.py``
 (``TestSchedulerPolicy``) and ``tests/test_faults.py``'s throttle/shed
 test on the tiny model at f32, greedy, with the port's seed-0 weights on
-every side.  No trace reads the wall clock: each side's clock advances
-``TICK`` on every call, so the deadlines, the EMAs and the cost model see
-the same times on every side and in every run.
+every side.  ``CHAOS_TRACES`` are ``test_faults.py``'s
+``TestChaosEngine`` scenarios on the paged engine (rate-scheduled DMA
+faults, a ring burst that trips the ring breaker, one and two poisoned
+steps) and their fault-free run, each async and sync.  The gauges also
+hold every side's fault counters (``robust_snapshot``'s endpoint stats,
+injections by site, retries and breaker trips), its ring depth and its
+transfer counts.  No trace reads the wall clock: each side's clock
+advances ``TICK`` on every call, so the deadlines, the EMAs and the cost
+model see the same times on every side and in every run.
 
 A side is ``(engine module, make)``: ``make(spec, clock)`` builds a
 ``Scheduler`` for a trace's ``spec`` (``port_side`` makes the port's on a
-device).  ``EXPECTED`` pins each trace's end, as the reference gives it.
+device; a spec's ``chaos`` is plain data that ``chaos_config`` makes into
+either package's ``ChaosConfig``).  ``EXPECTED`` and ``CHAOS_EXPECTED``
+pin each trace's end, as the reference gives it.
 """
 from __future__ import annotations
 
@@ -46,6 +54,8 @@ FREEZE = {
                      quantile=0.6, k_soft=0.7, recovery_enabled=False,
                      entropy_abs_threshold=0.5, rewalk_tokens=6),
 }
+# test_faults.py's chaos_cfg: the pressure freeze with recovery on
+FREEZE["chaos"] = dict(FREEZE["pressure"], recovery_enabled=True)
 PAGED = LC.PAGED
 CONTIGUOUS = dict(n_lanes=2, max_seq=128)
 # test_faults.py's _mk with max_active_pages=4
@@ -55,6 +65,29 @@ SHED_LADDER = dict(deny_prefetch=2.0, deepen_timers=2.0,
                    throttle_admissions=0.45, shed=0.6)
 LADDER_KEYS = ("ladder_deny", "ladder_deepen", "ladder_throttle",
                "ladder_shed", "quarantine_rewinds", "quarantined")
+CHAOS_KEYS = ("endpoints", "injected", "injected_by_site", "retries",
+              "breaker_trips")
+TRANSFER_KEYS = ("blocking_d2h", "blocking_h2d", "async_d2h", "async_h2d",
+                 "steps", "blocked_steps")
+# test_faults.py's _mk and its two requests (prompt length, new tokens)
+CHAOS_SERVING = dict(max_seq=256, n_lanes=2, max_active_pages=6,
+                     prefill_chunk=16, rewind_cooldown=12,
+                     burst_prefill=False)
+CHAOS_LENS = ((28, 40), (20, 36))
+# TestChaosEngine's chaos configs as plain data (``chaos_config``)
+CHAOS = {
+    "dma": dict(seed=7, rates={"pull": 0.3, "push": 0.3, "ring": 0.2,
+                               "stage": 0.5}),
+    "ring_breaker": dict(seed=0, max_retries=2, trip_after=2,
+                         cooldown_ops=6,
+                         explicit={("ring", i): dict(attempts=10)
+                                   for i in range(5, 9)}),
+    "nan_single": dict(seed=0, explicit={
+        ("nan", 30): dict(kind="nan", lane=0)}),
+    "nan_double": dict(seed=0, explicit={
+        ("nan", 30): dict(kind="nan", lane=0),
+        ("nan", 33): dict(kind="nan", lane=0)}),
+}
 # the foreground's deadline in the preemption traces: its own service
 # (one prefill chunk and 6 decode steps) fits, a background's remaining
 # ~38 steps do not
@@ -108,8 +141,26 @@ def sched_gauges(s) -> Dict[str, Any]:
                    s.n_cancelled),
         "emas": (s._step_s, s._suspend_s, s._resume_s),
         "robust": {k: eng.robust[k] for k in LADDER_KEYS},
+        "chaos": chaos_gauges(eng),
         "engine": LC.gauges(eng),
     }
+
+
+def chaos_gauges(eng) -> Dict[str, Any]:
+    """The engine's fault counters, its fetch ring's depth and its
+    transfer counts (blocking or async by the ring's depth at each pop)."""
+    rs = eng.robust_snapshot()
+    st = eng.stats
+    return dict({k: rs[k] for k in CHAOS_KEYS}, ring_depth=eng.ring.depth,
+                transfers=[getattr(st, k) for k in TRANSFER_KEYS])
+
+
+def chaos_config(faults, ch: Dict[str, Any]):
+    """A trace's chaos spec as ``faults.ChaosConfig`` (``faults`` is
+    either package's module)."""
+    explicit = {key: faults.FaultPlan(**plan)
+                for key, plan in ch.get("explicit", {}).items()}
+    return faults.ChaosConfig(**dict(ch, explicit=explicit))
 
 
 def _norm(out):
@@ -498,6 +549,43 @@ def trace_shed(d: SchedLockstep) -> None:
     assert [t for _, t in done] == [t for _, t in free]
 
 
+def _chaos(d: SchedLockstep, scenario: str, is_async: bool) -> None:
+    """``test_faults.py``'s two requests through a FIFO-equivalent
+    scheduler on the chaos freeze, under ``CHAOS[scenario]`` ("clean":
+    none), with the scenario's own assertions."""
+    sv = dict(CHAOS_SERVING)
+    if scenario != "clean":
+        sv["chaos"] = CHAOS[scenario]
+    d.open(spec("paged", is_async, freeze="chaos", serving=sv))
+    rng = np.random.RandomState(0)
+    for pl, n in CHAOS_LENS:
+        d.submit(_prompt(rng, pl), n)
+    d.run()
+    last = d.calls[-1]
+    ch, rob = last["chaos"], last["robust"]
+    statuses = sorted(st for st, _ in last["done"].values())
+    if scenario == "dma":
+        assert ch["retries"] > 0, ch
+    elif scenario == "ring_breaker":
+        assert ch["breaker_trips"] >= 1, ch
+        assert ch["endpoints"]["ring"]["exhausted"] >= 1, ch
+        assert not is_async or any(g["chaos"]["ring_depth"] == 0
+                                   for g in d.calls), "no depth-0 fallback"
+    elif scenario == "nan_single":
+        assert (rob["quarantine_rewinds"], rob["quarantined"]) == (1, 0), rob
+        assert statuses == ["completed", "completed"], statuses
+    elif scenario == "nan_double":
+        assert rob["quarantined"] == 1, rob
+        assert statuses == ["completed", "quarantined"], statuses
+    else:
+        assert ch["injected"] == 0 and statuses == ["completed"] * 2
+
+
+CHAOS_TRACES = {f"chaos_{sc}_{'async' if a else 'sync'}":
+                (lambda d, sc=sc, a=a: _chaos(d, sc, a))
+                for sc in ("clean",) + tuple(CHAOS) for a in (True, False)}
+
+
 TRACES = {
     "edf": trace_edf,
     "fifo": trace_fifo,
@@ -555,6 +643,43 @@ EXPECTED = {
         1: ("shed-resumed", 28, 7891), 2: (_C, 28, 7081),
         3: (_C, 28, 7066), 4: ("shed-resumed", 28, 7204)}),
 }
+
+
+def _chaos_pin(arm, sites, retries=0, trips=0, ring_exhausted=0,
+               quarantine=(0, 0), first=(_C, 40, 10414), short=0):
+    """A chaos trace's end (``chaos_end_counts``): the fault-free run's
+    calls and steps on ``arm`` less ``short``, request 1 ``first``,
+    request 2 the clean run's, and the fault counters."""
+    exhausted = {} if sites is None else dict.fromkeys(
+        ("pull", "push", "ring", "stage", "stash"), 0)
+    if ring_exhausted:
+        exhausted["ring"] = ring_exhausted
+    calls = (73 if arm == "async" else 72) - short
+    return dict(_pin(calls, 67 - short, [0, 0, 0], [0, 0], 0,
+                     {1: first, 2: (_C, 36, 8991)}),
+                chaos=dict(injected_by_site=sites or {}, retries=retries,
+                           breaker_trips=trips, exhausted=exhausted,
+                           quarantine=list(quarantine)))
+
+
+# each chaos trace's end as ``repro``'s paged engine gives it (race-free
+# staging buffers): request 2 is token-identical in every one of them
+CHAOS_EXPECTED = {}
+for _arm in ("async", "sync"):
+    CHAOS_EXPECTED.update({
+        f"chaos_clean_{_arm}": _chaos_pin(_arm, None),
+        f"chaos_dma_{_arm}": _chaos_pin(
+            _arm, dict(pull=4, push=4, ring=9, **(
+                {"stage": 14} if _arm == "async" else {})),
+            retries=31 if _arm == "async" else 17),
+        f"chaos_ring_breaker_{_arm}": _chaos_pin(
+            _arm, {"ring": 4}, retries=28, trips=6, ring_exhausted=12),
+        f"chaos_nan_single_{_arm}": _chaos_pin(
+            _arm, {"nan": 1}, quarantine=(1, 0), first=(_C, 40, 10086)),
+        f"chaos_nan_double_{_arm}": _chaos_pin(
+            _arm, {"nan": 2}, quarantine=(1, 1),
+            first=("quarantined", 13, 3097), short=4),
+    })
 # the traces chip_smoke.py runs card against CPU: the policy and
 # preemption traces, and the throttle/shed trace
 CARD_TRACES = ("fifo", "priority", "preempt_paged_async",
@@ -603,6 +728,7 @@ def port_models(params_cpu=None, device="cpu"):
 def port_side(device="cpu", params_cpu=None):
     """``(engine module, make)`` of the port on ``device``."""
     from repro_torch.serving import engine as E
+    from repro_torch.serving import faults as F
     from repro_torch.serving.config import ServingConfig
     from repro_torch.serving.scheduler import Scheduler
     cfgs, params = port_models(params_cpu, device)
@@ -615,6 +741,8 @@ def port_side(device="cpu", params_cpu=None):
         else:
             if sv.get("ladder") is not None:
                 sv["ladder"] = E.LadderConfig(**sv["ladder"])
+            if sv.get("chaos") is not None:
+                sv["chaos"] = chaos_config(F, sv["chaos"])
             cls = E.PagedContinuousEngine if sp["engine"] == "paged" \
                 else E.ContinuousEngine
             eng = cls(cfg, params, ServingConfig(**sv), device=device)
@@ -623,7 +751,21 @@ def port_side(device="cpu", params_cpu=None):
     return E, make
 
 
+def chaos_end_counts(d: SchedLockstep) -> Dict[str, Any]:
+    """``end_counts`` with the last scheduler's fault and quarantine
+    counters: injections by site, retries, breaker trips, each endpoint's
+    exhausted operations, quarantine rewinds and retirements."""
+    last = d.calls[-1]
+    ch, rob = last["chaos"], last["robust"]
+    return dict(end_counts(d), chaos=dict(
+        injected_by_site=dict(sorted(ch["injected_by_site"].items())),
+        retries=ch["retries"], breaker_trips=ch["breaker_trips"],
+        exhausted={k: e["exhausted"] for k, e in sorted(
+            ch["endpoints"].items())},
+        quarantine=[rob["quarantine_rewinds"], rob["quarantined"]]))
+
+
 def run(name: str, sides) -> SchedLockstep:
     d = SchedLockstep(sides)
-    TRACES[name](d)
+    (TRACES.get(name) or CHAOS_TRACES[name])(d)
     return d

@@ -3,8 +3,9 @@ attention, freeze-masked decode attention, the fused freeze update with
 its threshold, out of place and in place) against its plain PyTorch
 version on every contract case, each kernel's determinism (two calls on
 the same inputs, bit-identical), the freeze update's one launch a call,
-and the tiny paged and contiguous engines (a lifecycle trace and two SLO
-scheduler traces among them) on the card going through the kernels.  They
+and the tiny paged and contiguous engines (a lifecycle trace, two SLO
+scheduler traces and three chaos traces among them) on the card going
+through the kernels.  They
 need a CUDA device and ``nvcc``; elsewhere they skip.  Run them on the card
 with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -551,3 +552,21 @@ def test_tiny_scheduler_trace_matches_cpu(card, name):
     assert SC.end_counts(d) == SC.EXPECTED[name]
     assert K.paged_decode_attention_cuda.launches == sum(
         s.engine.wall_step for s in d.opened) * cfgs["plain"].num_layers
+
+
+@pytest.mark.parametrize("name", ["chaos_dma_async",
+                                  "chaos_ring_breaker_async",
+                                  "chaos_nan_single_sync"])
+def test_tiny_chaos_trace_matches_cpu(card, name):
+    """A chaos trace of ``sched_cases`` (DMA faults, the ring breaker's
+    depth-0 fallback, a poisoned step's quarantine rewind) on the card and
+    on the CPU call for call, at the end counts tests/test_torch_faults.py
+    pins against ``repro``, through kernel 1 on every card step."""
+    from repro_torch.serving import sched_cases as SC
+    cfgs, params = SC.port_models()
+    K.paged_decode_attention_cuda.launches = 0
+    d = SC.run(name, [SC.port_side("cpu", params),
+                      SC.port_side(card, params)])
+    assert SC.chaos_end_counts(d) == SC.CHAOS_EXPECTED[name]
+    assert K.paged_decode_attention_cuda.launches == \
+        d.sched.engine.wall_step * cfgs["chaos"].num_layers

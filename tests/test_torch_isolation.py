@@ -16,6 +16,7 @@ from repro_torch.models import model as MD
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import (ContinuousEngine,
                                         PagedContinuousEngine)
+from repro_torch.serving.faults import ChaosConfig
 
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 
@@ -76,11 +77,38 @@ def test_entry_points_raise_without_a_card():
     PagedContinuousEngine(cfg, params, sv, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("chaos", object())])
+@pytest.mark.parametrize("field,value", [("chaos", ChaosConfig(seed=1))])
 def test_unported_serving_options_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        ServingConfig(max_seq=64, n_lanes=1, max_active_pages=4,
-                      **{field: value})
+    """A chaos config deploys the paged engine; the contiguous engine's
+    chaos sites are not ported (ROADMAP item 9d-ii) and it raises."""
+    sv = ServingConfig(max_seq=64, n_lanes=1, max_active_pages=4,
+                       **{field: value})
+    cfg = get_config("llama3-8b-tiny")
+    params = MD.init_params(cfg, device="cpu")
+    PagedContinuousEngine(cfg, params, sv, device="cpu")
+    with pytest.raises(NotImplementedError, match="9d-ii"):
+        ContinuousEngine(cfg, params, sv.replace(max_active_pages=None),
+                         device="cpu")
+
+
+@pytest.mark.parametrize("module", ["repro_torch.serving.faults",
+                                    "repro_torch.launch.bench_chaos"])
+def test_chaos_modules_stand_alone(module):
+    """Each module of the chaos slice, imported alone, loads neither JAX
+    nor any module of the JAX package; ``faults`` loads no torch either."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({module!r})
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        if {module!r}.endswith(".faults"):
+            assert "torch" not in sys.modules
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
 
 
 @pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
