@@ -68,14 +68,18 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      CPU in lockstep on one virtual clock a side: tokens, ``metrics``
      rows, queue order, preemptions, ladder counters, engine gauges and
      events equal after every call, at the end counts
-     tests/test_torch_scheduler.py pins against ``repro``; fault
-     injection on the paged engine (``sched_cases.CHAOS_TRACES``: DMA
-     faults, a ring burst that trips the ring breaker, one and two
-     poisoned steps), async and sync, card and CPU in lockstep: tokens,
+     tests/test_torch_scheduler.py pins against ``repro``, and a lane cap
+     under tenancy (``TENANCY_TRACES``' ``tenancy_lane_cap``), the
+     controller's snapshot equal too, at the end
+     tests/test_torch_tenancy.py pins; fault injection on the paged and on
+     the contiguous engine (``sched_cases.CHAOS_TRACES``: DMA faults, a
+     ring burst that trips the ring breaker, one and two poisoned steps)
+     and the auditor's faulted paged serve with ``debug_invariants`` on
+     (``AUDIT_TRACES``), async and sync, card and CPU in lockstep: tokens,
      statuses, endpoint stats, injections, retries, breaker trips,
      quarantine counters, ring depth and transfer counts equal after every
-     call, at the end counts tests/test_torch_faults.py pins against
-     ``repro``;
+     call, at the end counts tests/test_torch_faults.py and
+     tests/test_torch_invariants.py pin against ``repro``;
   5. main paths — llama3-8b at full published width and depth (bf16 random
      weights made on the card from a seed, once) serves 8 requests of 128
      new tokens through the paged engine and then through the contiguous
@@ -86,7 +90,14 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      serve; the arms' tokens must be identical and the async arm must
      block the host on fewer steps.  A short profiled serve on each async
      engine gives the device busy share, aten ops, kernels and
-     ``aten::sort`` calls a step.  The paged engine then serves the same
+     ``aten::sort`` calls a step.  The contiguous int8, SLO, contiguous
+     chaos and tenancy serves below run at full depth too.  The earlier
+     paths that hold themselves against a baseline serve (paged int8
+     pages, stash budgets, the lifecycle, the paged faulted serve) and the
+     Table-1 protocol run at full width with the first ``CUT_LAYERS`` (8)
+     of the 32 layers, against the paged cell (async and ``--no-async``)
+     and the contiguous cell served first at that depth.  The paged
+     engine then serves the same
      requests with int8 pages (``kv_quant="int8"``), async and
      ``--no-async``: identical tokens, pages quantized, kernel 1 launched
      every step, ``kv_device_bytes`` (the reference's model of packed
@@ -125,7 +136,19 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      and one poisoned step on lane 0: retries and a trip, one quarantine
      rewind and no retirement, every request complete, the 7 requests
      not on the poisoned lane token-identical to the main path's async
-     serve, kernel 1 every step, ``exported_bytes`` 0.
+     serve, kernel 1 every step, ``exported_bytes`` 0.  The contiguous
+     engine in its main path's config serves the same requests under ring
+     faults, a ring burst that trips the ring breaker and one poisoned
+     step on lane 0 after the last admission: retries, a trip, one
+     quarantine rewind, every request complete, the 7 others
+     token-identical to the contiguous async serve, kernels 2 and 3 every
+     step.  Tenancy at full width: the paged engine (as the SLO cell)
+     serves 12 greedy requests of three tenants (gold weight 3, silver 1,
+     hog 1 capped at one lane) under ``Scheduler(policy="slo")`` with a
+     ``TenancyController``, then untenanted: every request completes,
+     tokens identical, the hog never above one lane, the admission order
+     changed, each tenant's share of the saturated window's tokens
+     reported against its weight share.
      ``Engine.generate`` then runs the
      paper's Table-1 protocol (14-token prompt, 500 new tokens) with
      freeze off and on, ``launch/bench_async.py`` its smoke trace on
@@ -1315,6 +1338,19 @@ def _full_width_config(launcher):
     return cfg
 
 
+# the depth of the earlier paged paths' serves that compare against a
+# baseline serve (int8 pages, stash budgets, the lifecycle, the faulted
+# serve) and of the Table-1 protocol: the first 8 of the 32 layers at full
+# width, so the smoke stays inside its time limit as it grows
+CUT_LAYERS = 8
+
+
+def _cut_config(launcher):
+    """llama3-8b at full width with its first ``CUT_LAYERS`` layers."""
+    return dataclasses.replace(_full_width_config(launcher),
+                               num_layers=CUT_LAYERS)
+
+
 def _serve_main(torch, launcher, engine_mod, cfg, engine, kernels):
     """Serve the main path's 8 requests on ``engine`` with no profiler,
     the launch counts zeroed just before and read just after, and check
@@ -1426,16 +1462,60 @@ def phase_main_path(torch, kernels, launcher, engine_mod, cfg_mod, params,
     return arms
 
 
-def phase_quant_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
+def phase_cut_baselines(torch, kernels, launcher, engine_mod, cfg_mod,
+                        params, card_line):
+    """The baselines of the depth-cut serves: the paged cell at
+    ``CUT_LAYERS`` layers, async and --no-async (identical tokens, fewer
+    blocked steps async), and the contiguous cell at that depth, async, on
+    the main path's requests with no profiler.  Returns the cut config and
+    the paged and contiguous arms, shaped as the main paths' are."""
+    cfg = _cut_config(launcher)
+    paged, contiguous = {}, {}
+    for label, is_async in MAIN_ARMS:
+        sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4,
+                                   max_active_pages=8, prefill_chunk=256,
+                                   seed=SEED, async_pipeline=is_async)
+        engine = engine_mod.PagedContinuousEngine(cfg, params, sv,
+                                                  device="cuda")
+        done, counts, timing, steps = _serve_main(torch, launcher, engine_mod,
+                                                  cfg, engine, kernels)
+        assert counts["paged_decode_attention"] == steps * cfg.num_layers, \
+            (counts, steps)
+        paged[label] = dict(tokens={r.uid: r.result for r in done},
+                            blocked=engine.stats.host_blocked_fraction,
+                            kv_bytes=engine.kv_device_bytes,
+                            peak_stash=engine.peak_stash_bytes)
+        log(f"baseline paged {label} [{card_line}], {cfg.num_layers} layers, "
+            f"no profiler: {steps} decode steps; {timing}; peak_stash_bytes "
+            f"{engine.peak_stash_bytes}")
+        del engine
+        torch.cuda.empty_cache()
+    _same_tokens(paged, f"paged at {cfg.num_layers} layers")
+    sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, seed=SEED,
+                               async_pipeline=True)
+    engine = engine_mod.ContinuousEngine(cfg, params, sv, device="cuda")
+    done, counts, timing, steps = _serve_main(torch, launcher, engine_mod,
+                                              cfg, engine, kernels)
+    for name in ("freeze_decode_attention", "relevance_freeze_update"):
+        assert counts[name] == steps * cfg.num_layers, (name, counts, steps)
+    contiguous[MAIN_ARMS[0][0]] = dict(tokens={r.uid: r.result for r in done})
+    log(f"baseline contiguous async [{card_line}], {cfg.num_layers} layers, "
+        f"no profiler: {steps} decode steps; {timing}")
+    del engine
+    torch.cuda.empty_cache()
+    return cfg, paged, contiguous
+
+
+def phase_quant_main_path(torch, kernels, launcher, engine_mod, cfg_mod, cfg,
                           params, card_line, base):
-    """The paged path with int8 pages: PagedContinuousEngine at full width
-    on the main path's 8 requests, async (default) and --no-async.  Tokens
+    """The paged path with int8 pages: PagedContinuousEngine at ``cfg``'s
+    depth on the main path's 8 requests, async (default) and --no-async,
+    against ``base``, the unquantized serves at that depth.  Tokens
     identical between the arms, pages quantized, per-lane active KV within
     P x page, and the kv_device_bytes gauge (the reference's model of
     packed pages) dipping below the unquantized arm's; the step medians and
     the tokens equal to the unquantized serve's (same sampling seeds) are
     printed, not asserted."""
-    cfg = _full_width_config(launcher)
     arms = {}
     for label, is_async in MAIN_ARMS:
         sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4,
@@ -1469,9 +1549,9 @@ def phase_quant_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
         same = sum(int(np.sum(r.result == base[label]["tokens"][r.uid]))
                    for r in done)
         total = sum(len(r.result) for r in done)
-        log(f"main path paged int8 {label} [{card_line}], no profiler: "
-            f"{steps} decode steps, {launches} kernel launches (= steps x "
-            f"32) with flagged pages; {timing}; {ctl.n_quantized_pages} "
+        log(f"main path paged int8 {label} [{card_line}], {cfg.num_layers} "
+            f"layers, no profiler: {steps} decode steps, {launches} kernel "
+            f"launches (= steps x {cfg.num_layers}) with flagged pages; {timing}; {ctl.n_quantized_pages} "
             f"pages quantized; kv_device_bytes floor {floor[-1]} vs "
             f"{unquantized} unquantized (modeled packing; the card's pool "
             f"stays bf16); peak per-lane active KV {peak_active:.0f} slots; "
@@ -1489,15 +1569,15 @@ def phase_quant_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
 
 
 def phase_ladder_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
-                           params, card_line, base):
+                           cfg, params, card_line, base):
     """The paged path under a host-stash budget: PagedContinuousEngine at
-    full width, async, on the main path's 8 requests, with budgets taken
-    from the unbounded async arm's ``peak_stash_bytes``.  At peak / 0.7
+    ``cfg``'s depth, async, on the main path's 8 requests, with budgets
+    taken from ``base``'s unbounded async arm's ``peak_stash_bytes`` (at
+    the same depth).  At peak / 0.7
     only rung 1 engages (prefetch denied, resident copies trimmed): no
     swap-out is denied, no timer deepened, and the tokens are the unbounded
     arm's.  At half the peak timers deepen and swap-outs are denied, and
     every request still completes its tokens."""
-    cfg = _full_width_config(launcher)
     free = base[MAIN_ARMS[0][0]]
     peak = free["peak_stash"]
     assert peak > 0, peak
@@ -1533,10 +1613,12 @@ def phase_ladder_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
             n_same = sum(int(np.sum(r.result == free["tokens"][r.uid]))
                          for r in done)
             same = f"{n_same} of 1024 tokens equal to the unbounded serve's"
-        log(f"main path paged ladder {label} [{card_line}], async, no "
-            f"profiler: budget {budget} B against the unbounded peak "
-            f"{peak} B; {launcher.ladder_line(engine)}; {steps} decode "
-            f"steps, {launches} kernel launches (= steps x 32); {timing}; "
+        log(f"main path paged ladder {label} [{card_line}], "
+            f"{cfg.num_layers} layers, async, no profiler: budget {budget} B "
+            f"against the unbounded peak {peak} B; "
+            f"{launcher.ladder_line(engine)}; {steps} decode steps, "
+            f"{launches} kernel launches (= steps x {cfg.num_layers}); "
+            f"{timing}; "
             f"denied offloads {ctl.n_denied_offloads}, deepen skips "
             f"{ctl.n_deepen_skips}, trims {ctl.n_trims}; swaps "
             f"{ctl.n_swap_out} out / {ctl.n_swap_in} in / {ctl.n_thaw} "
@@ -1578,7 +1660,9 @@ def phase_contiguous_main_path(torch, kernels, launcher, engine_mod,
             f"{sum(r.telemetry.rewinds for r in done)} rewinds")
         arms[label] = dict(tokens={r.uid: r.result for r in done},
                            blocked=engine.stats.host_blocked_fraction,
-                           counts=counts)
+                           counts=counts, steps=steps,
+                           admits=[e["wall_step"] for e in engine.events
+                                   if e["event"] == "admit"])
         if is_async:
             _profile_serve(torch, launcher, engine_mod, cfg, engine,
                            card_line, "contiguous")
@@ -1594,18 +1678,18 @@ INT8_PAGE_BYTES = 2 * 64 * 8 * 128
 
 
 def phase_contiguous_quant_main_path(torch, kernels, launcher, engine_mod,
-                                     cfg_mod, params, card_line, base):
+                                     cfg_mod, cfg, params, card_line, base):
     """The contiguous path with an int8 host offload: ContinuousEngine at
-    full width on the main path's 8 requests, async (default), --no-async,
+    ``cfg``'s depth on the main path's 8 requests, async (default), --no-async,
     and async with ``stash_budget_bytes`` at half the async serve's
     ``peak_stash_bytes``.  Kernels 2 and 3 launched every step of every
     serve and kernel 1 never; pages offloaded, each stored as a 131,072 B
     int8 payload, ``stash_bytes`` the store's bytes after every call;
     tokens identical between the async and --no-async arms; under the
     budget offloads denied and every request served.  Tokens equal to the
-    unquantized serve's (``base``) are printed, not asserted.  Returns each
-    serve's launch counts."""
-    cfg = _full_width_config(launcher)
+    unquantized async serve's at that depth (``base``; the arms' tokens are
+    identical) are printed, not asserted.  Returns each serve's launch
+    counts."""
     arms, launched, peak = {}, {name: [] for name in kernels}, None
     serves = [(label, is_async, False) for label, is_async in MAIN_ARMS]
     for label, is_async, bounded in serves + [("async, half peak", True,
@@ -1644,19 +1728,19 @@ def phase_contiguous_quant_main_path(torch, kernels, launcher, engine_mod,
             assert off.n_denied_offloads == 0
         if peak is None:
             peak = engine.peak_stash_bytes
-        unquantized = base[MAIN_ARMS[0 if is_async else 1][0]]["tokens"]
+        unquantized = base[MAIN_ARMS[0][0]]["tokens"]
         same = sum(int(np.sum(r.result == unquantized[r.uid])) for r in done)
-        log(f"main path contiguous int8 {label} [{card_line}], no profiler: "
-            f"budget {budget} B; {steps} decode steps, "
-            f"{counts['freeze_decode_attention']} masked-attention and "
-            f"{counts['relevance_freeze_update']} freeze-update launches "
-            f"(each = steps x 32); {timing}; offloads {off.n_offloads} out / "
+        log(f"main path contiguous int8 {label} [{card_line}], "
+            f"{cfg.num_layers} layers, no profiler: budget {budget} B; "
+            f"{steps} decode steps, {counts['freeze_decode_attention']} "
+            f"masked-attention and {counts['relevance_freeze_update']} "
+            f"freeze-update launches (each = steps x {cfg.num_layers}); "
+            f"{timing}; offloads {off.n_offloads} out / "
             f"{off.n_restores} restored, {off.n_denied_offloads} denied, "
             f"{off.moved_bytes} bytes moved; peak_stash_bytes "
             f"{engine.peak_stash_bytes} ({pages[0]} pages x "
             f"{INT8_PAGE_BYTES} B); {same} of 1024 tokens equal to the "
-            f"unquantized serve's ({'async' if is_async else 'sync'}, same "
-            f"sampling seeds)")
+            f"unquantized serve's (same sampling seeds)")
         if not bounded:
             arms[label] = dict(tokens={r.uid: r.result for r in done},
                                blocked=engine.stats.host_blocked_fraction)
@@ -1749,20 +1833,19 @@ def _lifecycle_serve(torch, engine, reqs, paged):
     return done, roles, ms, sizes, peak_exported
 
 
-def phase_lifecycle_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
+def phase_lifecycle_main_path(torch, kernels, engine_mod, cfg_mod, cfg,
                               params, card_line, paged, contiguous):
-    """The lane lifecycle at full width: the paged engine, async, serves the
-    main path's 8 requests with one suspension and resume, one
+    """The lane lifecycle at ``cfg``'s depth: the paged engine, async,
+    serves the main path's 8 requests with one suspension and resume, one
     ``admit_over`` install and one cancellation (``_lifecycle_serve``):
-    the suspended and the preempted victims' tokens equal the main path's
-    own serve of the same requests, the cancelled request's tokens are a
-    prefix of it, ``exported_bytes`` returns to 0 and kernel 1 launches 32
-    times a step.  The contiguous engine, async, serves them with one
+    the suspended and the preempted victims' tokens equal the async serve
+    of the same requests at that depth (``paged``), the cancelled
+    request's tokens are a prefix of it, ``exported_bytes`` returns to 0
+    and kernel 1 launches once a layer a step.  The contiguous engine, async, serves them with one
     suspension and its re-prefill resume: every request completes, the
     suspended one keeps its prefix, and the share of tokens equal to the
     unsuspended serve's is printed.  Returns the kernels' launch counts
     over both serves."""
-    cfg = _full_width_config(launcher)
     launched = {}
     for name, base in (("paged", paged), ("contiguous", contiguous)):
         base = base[MAIN_ARMS[0][0]]["tokens"]
@@ -1831,8 +1914,8 @@ def phase_lifecycle_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
             victims = (f"suspended {uid} after {snap_len} tokens, resumed "
                        f"by re-prefill, kept its prefix")
         launched[name] = counts
-        log(f"main path lifecycle {name} [{card_line}], async, no profiler: "
-            f"{steps} decode steps in {seconds:.2f} s; kernel launches "
+        log(f"main path lifecycle {name} [{card_line}], {cfg.num_layers} "
+            f"layers, async, no profiler: {steps} decode steps in {seconds:.2f} s; kernel launches "
             f"{counts}; {victims}; {same} of "
             f"{sum(len(r.result) for r in done)} tokens equal to the main "
             f"serve's; suspend host ms {ms['suspend']}, resume host ms "
@@ -1843,12 +1926,12 @@ def phase_lifecycle_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
     return launched
 
 
-def phase_table1(torch, kernels, launcher, engine_mod, params, card_line):
-    """The paper's Table-1 protocol through Engine.generate at full width:
-    benchmarks/common.py's freeze settings, a 14-token random prompt, 500
-    new tokens, max_seq 560, temperature 0.7; freeze off, then on.  The
-    weights are random, so the compression is not the paper's."""
-    cfg = _full_width_config(launcher)
+def phase_table1(torch, kernels, engine_mod, cfg, params, card_line):
+    """The paper's Table-1 protocol through Engine.generate at ``cfg``'s
+    width and depth: benchmarks/common.py's freeze settings, a 14-token
+    random prompt, 500 new tokens, max_seq 560, temperature 0.7; freeze
+    off, then on.  The weights are random, so the compression is not the
+    paper's."""
     cfg = dataclasses.replace(cfg, freeze=dataclasses.replace(
         cfg.freeze, window=16, tau_mode="quantile", quantile=0.45,
         k_soft=1.0, page_size=16, recovery_enabled=True,
@@ -1875,7 +1958,8 @@ def phase_table1(torch, kernels, launcher, engine_mod, params, card_line):
         assert np.isfinite(res.entropy).all()
         rows[label] = res
         off = eng.offloader
-        log(f"table1 {label} [{card_line}]: total_kv[-1] {res.total_kv[-1]}"
+        log(f"table1 {label} [{card_line}], {cfg.num_layers} layers: "
+            f"total_kv[-1] {res.total_kv[-1]}"
             f", active_kv[-1] {res.active_kv[-1]:.2f}, compression "
             f"{100 * res.compression:.2f}%, {dt:.2f} s for 500 tokens "
             f"({steps} decode steps, {res.rewinds} rewinds"
@@ -2332,6 +2416,24 @@ def phase_sched_reference(kernels):
             f"queue, preemptions {got['counts'][0]}, ladder throttle/shed "
             f"{got['ladder']}, engine gauges, events) in {dt:.1f}s; "
             f"requests {got['requests']}; kernel launches {launched}")
+    for name in SC.CARD_TENANCY_TRACES:
+        _reset_counts(kernels)
+        t0 = time.perf_counter()
+        d = SC.run(name, sides)
+        dt = time.perf_counter() - t0
+        launched = _read_counts(kernels)
+        got = SC.tenancy_end_counts(d)
+        assert got == SC.TENANCY_EXPECTED[name], (
+            name, got, SC.TENANCY_EXPECTED[name])
+        steps = sum(s.engine.wall_step for s in d.opened)
+        want = {"paged_decode_attention": steps * layers,
+                "freeze_decode_attention": 0, "relevance_freeze_update": 0}
+        assert launched == want, (name, launched, want)
+        log(f"reference tenancy {name}: tiny f32 greedy, card == CPU after "
+            f"each of {got['calls']} calls (tokens, metrics rows, queue, "
+            f"tenancy snapshot, engine gauges, events) in {dt:.1f}s; "
+            f"tenants {got['tenancy']}; requests {got['requests']}; kernel "
+            f"launches {launched}")
 
 
 def phase_bench_sched(torch, kernels, card_line):
@@ -2501,19 +2603,23 @@ def phase_chaos_reference(kernels):
     """Fault injection on the tiny f32 model, greedy: the chaos traces of
     ``serving/sched_cases.py`` (``tests/test_faults.py``'s rate-scheduled
     DMA faults, a ring burst that trips the ring breaker, one and two
-    poisoned steps), async and sync, each on the CPU (plain versions) and
-    on the card (kernel 1) in lockstep, one virtual clock a side: tokens,
-    statuses, the endpoints' stats, injections by site, retries, breaker
-    trips, quarantine counters, ring depth and transfer counts equal after
-    every call, at the end counts tests/test_torch_faults.py pins against
-    ``repro``; each decode step launches kernel 1 once a layer."""
+    poisoned steps) on the paged and on the contiguous engine, and the
+    auditor's faulted paged serve with ``debug_invariants`` on, async and
+    sync, each on the CPU (plain versions) and on the card (kernels) in
+    lockstep, one virtual clock a side: tokens, statuses, the endpoints'
+    stats, injections by site, retries, breaker trips, quarantine
+    counters, ring depth and transfer counts equal after every call, at
+    the end counts tests/test_torch_faults.py and
+    tests/test_torch_invariants.py pin against ``repro``; each decode step
+    launches kernel 1 (paged) or kernels 2 and 3 (contiguous) once a
+    layer."""
     from repro_torch.serving import sched_cases as SC
     cfgs, params_cpu = SC.port_models()
     sides = [SC.port_side("cpu", params_cpu), SC.port_side("cuda",
                                                            params_cpu)]
     layers = cfgs["chaos"].num_layers
-    for name in SC.CHAOS_TRACES:
-        if name.startswith("chaos_clean"):
+    for name in list(SC.CHAOS_TRACES) + list(SC.AUDIT_TRACES):
+        if "chaos_clean" in name:
             continue            # its end is pinned; the CPU test runs it
         _reset_counts(kernels)
         t0 = time.perf_counter()
@@ -2523,9 +2629,11 @@ def phase_chaos_reference(kernels):
         got = SC.chaos_end_counts(d)
         assert got == SC.CHAOS_EXPECTED[name], (name, got,
                                                 SC.CHAOS_EXPECTED[name])
-        steps = d.sched.engine.wall_step
-        want = {"paged_decode_attention": steps * layers,
-                "freeze_decode_attention": 0, "relevance_freeze_update": 0}
+        n = d.sched.engine.wall_step * layers
+        contiguous = name.startswith("contiguous")
+        want = {"paged_decode_attention": 0 if contiguous else n,
+                "freeze_decode_attention": n if contiguous else 0,
+                "relevance_freeze_update": n if contiguous else 0}
         assert launched == want, (name, launched, want)
         log(f"reference chaos {name}: tiny f32 greedy, card == CPU after "
             f"each of {got['calls']} calls (tokens, statuses, endpoint "
@@ -2582,17 +2690,16 @@ def _chaos_main_config():
                        explicit=explicit)
 
 
-def phase_chaos_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
+def phase_chaos_main_path(torch, kernels, launcher, engine_mod, cfg_mod, cfg,
                           params, card_line, paged):
-    """Faults at full width: PagedContinuousEngine in the main path's
-    config (async, P = 8 + 3, chunk 256) serves its 8 requests under
-    ``_chaos_main_config``.  No exception; retries and a breaker trip; one
-    quarantine rewind and no retirement; every request completes; every
-    request but the one on lane 0 at the poisoned step token-identical to
-    the main path's async serve; kernel 1 launched 32 times a step;
-    ``exported_bytes`` 0 and an empty store at the end.  Returns kernel
-    1's launches."""
-    cfg = _full_width_config(launcher)
+    """Faults on the paged path at ``cfg``'s depth: PagedContinuousEngine
+    in the main path's config (async, P = 8 + 3, chunk 256) serves its 8
+    requests under ``_chaos_main_config``.  No exception; retries and a
+    breaker trip; one quarantine rewind and no retirement; every request
+    completes; every request but the one on lane 0 at the poisoned step
+    token-identical to ``paged``'s async serve at that depth; kernel 1
+    launched once a layer a step; ``exported_bytes`` 0 and an empty store
+    at the end.  Returns kernel 1's launches."""
     base = paged[MAIN_ARMS[0][0]]["tokens"]
     sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, max_active_pages=8,
                                prefill_chunk=256, seed=SEED,
@@ -2633,8 +2740,8 @@ def phase_chaos_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
     eps = {k: {f: v for f, v in e.items() if v}
            for k, e in rs["endpoints"].items()}
     launched = counts["paged_decode_attention"]
-    log(f"main path chaos [{card_line}], async, no profiler: {steps} decode "
-        f"steps in {seconds:.2f} s (median step "
+    log(f"main path chaos [{card_line}], {cfg.num_layers} layers, async, no "
+        f"profiler: {steps} decode steps in {seconds:.2f} s (median step "
         f"{statistics.median(step_ms):.2f} ms); {launched} kernel launches "
         f"= steps x {cfg.num_layers}; injected "
         f"{rs['injected']} {rs['injected_by_site']}, retries {rs['retries']}, "
@@ -2647,6 +2754,220 @@ def phase_chaos_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
     del engine
     torch.cuda.empty_cache()
     return launched
+
+
+# the full-width faulted contiguous serve: ring faults at test_faults.py's
+# rate with its breaker settings, a ring burst on four consecutive pops,
+# and one poisoned step on lane 0 this many steps after the last admission
+# of the main serve (inside the second wave, so no admission comes after
+# the rewind)
+CHAOS_CONTIGUOUS_NAN_AFTER = 32
+
+
+def _chaos_contiguous_config(nan_op):
+    from repro_torch.serving.faults import ChaosConfig, FaultPlan
+    explicit = {("ring", i): FaultPlan(attempts=10)
+                for i in CHAOS_RING_BURST}
+    explicit[("nan", nan_op)] = FaultPlan(kind="nan", lane=0)
+    return ChaosConfig(seed=7, rates={"ring": 0.2}, max_retries=2,
+                       trip_after=2, cooldown_ops=6, explicit=explicit)
+
+
+def phase_chaos_contiguous_main_path(torch, kernels, launcher, engine_mod,
+                                     cfg_mod, params, card_line, contiguous):
+    """Faults on the contiguous path at full width: ContinuousEngine in the
+    contiguous main path's config (4 lanes, max_seq 2048, host offload,
+    recovery, async) serves its 8 requests under
+    ``_chaos_contiguous_config``, the ``nan`` op read from the main serve's
+    admissions.  No exception; retries, a ring breaker trip and an
+    exhausted ring pop; one quarantine rewind and no retirement; every
+    request completes; the 7 requests not on lane 0 at the poisoned step
+    token-identical to the contiguous main path's async serve; kernels 2
+    and 3 launched 32 times a step, kernel 1 not at all.  Returns kernels
+    2 and 3's launches."""
+    cfg = _full_width_config(launcher)
+    main = contiguous[MAIN_ARMS[0][0]]
+    base, last_admit = main["tokens"], max(main["admits"])
+    nan_op = last_admit + CHAOS_CONTIGUOUS_NAN_AFTER
+    sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, seed=SEED,
+                               async_pipeline=True,
+                               chaos=_chaos_contiguous_config(nan_op))
+    engine = engine_mod.ContinuousEngine(cfg, params, sv, device="cuda")
+    reqs = _requests(engine_mod, cfg, np.random.RandomState(SEED), range(8),
+                     128)
+    _reset_counts(kernels)
+    done, seconds, step_ms, _, _ = _fifo(torch, launcher, engine, reqs)
+    counts = _read_counts(kernels)
+    steps = engine.wall_step
+    rs = engine.robust_snapshot()
+    for name in ("freeze_decode_attention", "relevance_freeze_update"):
+        assert counts[name] == steps * cfg.num_layers, (name, counts, steps)
+    assert counts["paged_decode_attention"] == 0, counts
+    assert rs["retries"] > 0 and rs["breaker_trips"] >= 1, rs
+    assert engine.ep_ring.n_exhausted >= 1
+    assert (rs["quarantine_rewinds"], rs["quarantined"]) == (1, 0), rs
+    assert len(done) == 8 and all(
+        str(r.status) == "completed" and len(r.result) == 128 for r in done)
+    admits = [e for e in engine.events if e["event"] == "admit"]
+    assert max(e["wall_step"] for e in admits) < nan_op, (admits, nan_op)
+    poisoned = [r for r in done if not np.isfinite(r.telemetry.entropy).all()]
+    assert len(poisoned) == 1, [r.uid for r in poisoned]
+    victim = poisoned[0].uid
+    assert victim in [e["uid"] for e in admits if e["lane"] == 0], victim
+    for r in done:
+        if r.uid != victim:
+            i = _first_divergence(r.result, base[r.uid])
+            assert i is None, f"contiguous chaos request {r.uid}: tokens " \
+                              f"diverge from the main serve's at {i}"
+    same = int(np.sum(poisoned[0].result == base[victim]))
+    ring = rs["endpoints"]["ring"]
+    log(f"main path contiguous chaos [{card_line}], async, no profiler: "
+        f"{steps} decode steps (main serve {main['steps']}) in "
+        f"{seconds:.2f} s (median step {statistics.median(step_ms):.2f} ms); "
+        f"{counts['freeze_decode_attention']} masked-attention and "
+        f"{counts['relevance_freeze_update']} freeze-update launches (each "
+        f"= steps x {cfg.num_layers}); nan op {nan_op} (last admission at "
+        f"step {last_admit}); injected {rs['injected']} "
+        f"{rs['injected_by_site']}, retries {rs['retries']}, breaker trips "
+        f"{rs['breaker_trips']}, ring {ring}; quarantine rewinds "
+        f"{rs['quarantine_rewinds']}, quarantined {rs['quarantined']}; "
+        f"poisoned request {victim} on lane 0 completed ({same} of 128 "
+        f"tokens equal to the main serve's), the 7 others token-identical "
+        f"to it; ring depth {engine.ring.depth} at the end; offloads "
+        f"{engine.offloader.n_offloads} out / {engine.offloader.n_restores} "
+        f"restored")
+    for line in launcher.summary_lines(engine, done, seconds, 4):
+        log(f"  {line}")
+    del engine
+    torch.cuda.empty_cache()
+    return {name: counts[name] for name in ("freeze_decode_attention",
+                                            "relevance_freeze_update")}
+
+
+# the full-width tenanted serve: three tenants, 4 requests each, all
+# submitted at t = 0 (interleaved gold, silver, hog, ...); the fairness
+# bounds of benchmarks/serving.py
+TENANTS = (("gold", 3.0, None), ("silver", 1.0, None), ("hog", 1.0, 1))
+TENANT_REQUESTS = 4
+TENANT_TOKENS = 64
+FAIRNESS = (0.5, 1.5)
+
+
+def _tenant_serve(torch, engine_mod, cfg, engine, kernels, tenancy):
+    """The tenant trace through ``Scheduler(policy="slo")`` on ``engine``,
+    with ``tenancy`` (None: the untenanted arm).  Returns the tokens by
+    uid, the admission order (uids), the most lanes the hog held, the
+    tenancy snapshot at the end of the saturated window (the first step
+    after which some tenant has nothing queued or running), the counts,
+    the decode steps and the wall seconds."""
+    from repro_torch.serving.scheduler import Scheduler
+    sched = Scheduler(engine, policy="slo", tenancy=tenancy)
+    rng = np.random.RandomState(SEED + 2)
+    greedy = engine_mod.SamplingParams.greedy()
+    tenant_of = {}
+    for _ in range(TENANT_REQUESTS):
+        for name, _, _ in TENANTS:
+            uid = sched.submit(
+                rng.randint(0, cfg.vocab_size, rng.randint(700, 1001)),
+                TENANT_TOKENS, greedy, tenant=name)
+            tenant_of[uid] = name
+    n_events, w0 = len(engine.events), engine.wall_step
+    hog_lanes, window = 0, None
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    while sched.queue or sched.busy:
+        sched.step()
+        held = [l.request.tenant for l in engine.lanes
+                if l.request is not None]
+        hog_lanes = max(hog_lanes, held.count("hog"))
+        if window is None and tenancy is not None:
+            live = {t for u, t in tenant_of.items() if u not in sched.done}
+            if len(live) < len(TENANTS):
+                window = tenancy.snapshot()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _read_counts(kernels)
+    done = sched.done
+    assert len(done) == len(tenant_of) and all(
+        str(r.status) == "completed" and len(r.result) == TENANT_TOKENS
+        for r in done.values()), {u: str(r.status) for u, r in done.items()}
+    order = [e["uid"] for e in engine.events[n_events:]
+             if e["event"] == "admit_start"]
+    return dict(tokens={u: r.result for u, r in done.items()}, order=order,
+                hog_lanes=hog_lanes, window=window, counts=counts,
+                steps=engine.wall_step - w0, seconds=seconds,
+                tenant_of=tenant_of)
+
+
+def phase_tenancy_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
+                            params, card_line):
+    """Tenancy at full width: PagedContinuousEngine (4 lanes, P = 8 pages
+    of 64 + 3 staging, prefill chunk 256, async) with the full-width
+    scheduler cell's fixed chunk split and recovery off (so greedy tokens
+    cannot depend on the admission order), under ``Scheduler(policy=
+    "slo")`` with a ``TenancyController`` (gold weight 3, silver 1, hog 1
+    capped at one lane), then the same 12 requests with no tenancy.  Every
+    request completes, the tokens are identical in both arms, the hog never
+    holds more than one lane, the admission order differs from the
+    untenanted arm's, and kernel 1 launches 32 times a step.  Each tenant's
+    share of the committed tokens over the saturated window is reported
+    beside its weight share and benchmarks/serving.py's bounds.  Returns
+    kernel 1's launches in each arm."""
+    from repro_torch.serving.tenancy import TenancyController, TenantConfig
+    cfg = launcher.launcher_config("llama3-8b", tiny=False, recovery=False)
+    sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, max_active_pages=8,
+                               prefill_chunk=256, seed=SEED,
+                               async_pipeline=True, burst_prefill=False)
+    engine = engine_mod.PagedContinuousEngine(cfg, params, sv, device="cuda")
+    assert engine.S_stage == 3
+    arms = {}
+    for arm in ("tenanted", "untenanted"):
+        tenancy = TenancyController(
+            [TenantConfig(n, weight=w, max_lanes=m) for n, w, m in TENANTS]) \
+            if arm == "tenanted" else None
+        res = _tenant_serve(torch, engine_mod, cfg, engine, kernels,
+                            tenancy)
+        counts = res["counts"]
+        assert counts["paged_decode_attention"] == \
+            res["steps"] * cfg.num_layers, (arm, counts, res["steps"])
+        assert counts["freeze_decode_attention"] == 0 and \
+            counts["relevance_freeze_update"] == 0, counts
+        assert engine.robust_snapshot()["exported_bytes"] == 0
+        arms[arm] = res
+        log(f"main path tenancy {arm} [{card_line}], async, no profiler: "
+            f"{res['steps']} decode steps in {res['seconds']:.2f} s "
+            f"({res['counts']['paged_decode_attention']} kernel launches = "
+            f"steps x {cfg.num_layers}), admission order "
+            f"{[res['tenant_of'][u] for u in res['order']]}, the hog held "
+            f"at most {res['hog_lanes']} lanes")
+    ten, plain = arms["tenanted"], arms["untenanted"]
+    assert ten["hog_lanes"] == 1, ten["hog_lanes"]
+    assert ten["order"] != plain["order"], ten["order"]
+    assert sorted(ten["tokens"]) == sorted(plain["tokens"])
+    for uid, toks in plain["tokens"].items():
+        i = _first_divergence(ten["tokens"][uid], toks)
+        assert i is None, f"tenancy request {uid}: tenanted and untenanted " \
+                          f"tokens diverge at generated token {i}"
+    window = ten["window"]
+    assert window is not None
+    total = sum(t["goodput_tokens"] for t in window.values())
+    wsum = sum(w for _, w, _ in TENANTS)
+    shares = []
+    for name, w, _ in TENANTS:
+        share = window[name]["goodput_tokens"] / max(total, 1)
+        ratio = share / (w / wsum)
+        inside = FAIRNESS[0] <= ratio <= FAIRNESS[1]
+        shares.append(f"{name} {window[name]['goodput_tokens']} tokens, "
+                      f"share {share:.4f} / weight share {w / wsum:.4f} = "
+                      f"{ratio:.4f} ({'inside' if inside else 'OUTSIDE'} "
+                      f"{list(FAIRNESS)})")
+    log(f"main path tenancy [{card_line}]: saturated window {total} "
+        f"committed tokens: {'; '.join(shares)}; every one of "
+        f"{len(plain['tokens'])} requests' tokens identical in both arms")
+    del engine
+    torch.cuda.empty_cache()
+    return [ten["counts"]["paged_decode_attention"],
+            plain["counts"]["paged_decode_attention"]]
 
 
 def main() -> int:
@@ -2695,28 +3016,38 @@ def main() -> int:
     paged = phase_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
                             params, card_line)
     launches = paged[MAIN_ARMS[0][0]]["launches"]
-    phase_quant_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
-                          params, card_line, paged)
-    ladder_launches = phase_ladder_main_path(torch, kernels, launcher,
-                                             engine_mod, cfg_mod, params,
-                                             card_line, paged)
     contiguous = phase_contiguous_main_path(torch, kernels, launcher,
                                             engine_mod, cfg_mod, params,
                                             card_line)
     counts = contiguous[MAIN_ARMS[0][0]]["counts"]
-    quant_launches = phase_contiguous_quant_main_path(
-        torch, kernels, launcher, engine_mod, cfg_mod, params, card_line,
-        contiguous)
-    lifecycle = phase_lifecycle_main_path(torch, kernels, launcher,
-                                          engine_mod, cfg_mod, params,
-                                          card_line, paged, contiguous)
     sched_launches = phase_sched_main_path(torch, kernels, launcher,
                                            engine_mod, cfg_mod, params,
                                            card_line)
+    quant_launches = phase_contiguous_quant_main_path(
+        torch, kernels, launcher, engine_mod, cfg_mod,
+        _full_width_config(launcher), params, card_line, contiguous)
+    chaos_contiguous = phase_chaos_contiguous_main_path(
+        torch, kernels, launcher, engine_mod, cfg_mod, params, card_line,
+        contiguous)
+    tenancy_launches = phase_tenancy_main_path(torch, kernels, launcher,
+                                               engine_mod, cfg_mod, params,
+                                               card_line)
+    # earlier paths that compare against a baseline serve, at CUT_LAYERS
+    # layers against baselines at that depth
+    cut, paged_cut, contiguous_cut = phase_cut_baselines(
+        torch, kernels, launcher, engine_mod, cfg_mod, params, card_line)
+    phase_quant_main_path(torch, kernels, launcher, engine_mod, cfg_mod, cut,
+                          params, card_line, paged_cut)
+    ladder_launches = phase_ladder_main_path(torch, kernels, launcher,
+                                             engine_mod, cfg_mod, cut,
+                                             params, card_line, paged_cut)
     chaos_launches = phase_chaos_main_path(torch, kernels, launcher,
-                                           engine_mod, cfg_mod, params,
-                                           card_line, paged)
-    phase_table1(torch, kernels, launcher, engine_mod, params, card_line)
+                                           engine_mod, cfg_mod, cut, params,
+                                           card_line, paged_cut)
+    lifecycle = phase_lifecycle_main_path(torch, kernels, engine_mod,
+                                          cfg_mod, cut, params, card_line,
+                                          paged_cut, contiguous_cut)
+    phase_table1(torch, kernels, engine_mod, cut, params, card_line)
     del params
     torch.cuda.empty_cache()
     phase_bench_async(torch, kernels, card_line)
@@ -2746,6 +3077,7 @@ def main() -> int:
                  "paged_decode_attention"],
              launches_sched_serves=sched_launches,
              launches_chaos_serve=chaos_launches,
+             launches_tenancy_serves=tenancy_launches,
              max_abs_err=err, ms=ms, plain_ms=plain_ms,
              bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
              **{f"{k}_{mode}_pages": v for mode, t in quant_t.items()
@@ -2757,6 +3089,7 @@ def main() -> int:
              launches_int8_serves=quant_launches["freeze_decode_attention"],
              launches_lifecycle_serves=lifecycle["contiguous"][
                  "freeze_decode_attention"],
+             launches_chaos_serve=chaos_contiguous["freeze_decode_attention"],
              max_abs_err=err2, **k2),
         dict(name="relevance_freeze_update", route="cuda",
              source="src/repro_torch/kernels/csrc/relevance_freeze.cu",
@@ -2765,6 +3098,7 @@ def main() -> int:
              launches_int8_serves=quant_launches["relevance_freeze_update"],
              launches_lifecycle_serves=lifecycle["contiguous"][
                  "relevance_freeze_update"],
+             launches_chaos_serve=chaos_contiguous["relevance_freeze_update"],
              max_abs_err=0.0, **k3),
     ]
     kernels_line = {"kernels": rows}

@@ -43,12 +43,13 @@ reference launcher does.
 stash pressure rises (the engine's rungs 1-2, the scheduler's throttle
 and shed), and a ``chaos: ... ladder: ...`` line reports their counters
 and the stash peak against the budget.  ``--chaos-seed`` injects faults
-at ``--chaos-rate`` into the paged engine's pull, push, ring and stage
-transfers (``serving/faults.py``): they are retried, an endpoint that
-keeps failing trips its breaker and its mode degrades, and the same
-``chaos:`` line reports the injections, retries and trips.  The
-contiguous mode refuses it (ROADMAP item 9d-ii); ``--static`` ignores it,
-as the reference launcher does.
+at ``--chaos-rate`` into the engine's guarded transfers
+(``serving/faults.py``): the fetch ring's pops in both continuous modes,
+and on ``--paged`` also the boundary tick's pull and push and the staging
+uploads.  They are retried, an endpoint that keeps failing trips its
+breaker and its mode degrades (an open ring breaker serves at depth 0),
+and the same ``chaos:`` line reports the injections, retries and trips.
+``--static`` ignores it, as the reference launcher does.
 
 Both continuous modes serve through the SLO ``Scheduler``: strict
 ``--priority`` classes, earliest deadline first within a class
@@ -259,10 +260,11 @@ def main(argv=None):
                          "copies, then deepen freeze timers) and caps "
                          "swap-outs at the budget")
     ap.add_argument("--chaos-seed", type=int, default=None,
-                    help="deterministic fault injection on --paged's "
-                         "pull, push, ring and stage transfers with this "
-                         "seed (retries, breaker fallbacks; the contiguous "
-                         "mode refuses it, ROADMAP item 9d-ii)")
+                    help="deterministic fault injection with this seed on "
+                         "the guarded transfers: the fetch ring in both "
+                         "continuous modes, and the pull, push and staging "
+                         "transfers on --paged (retries, breaker "
+                         "fallbacks)")
     ap.add_argument("--chaos-rate", type=float, default=0.05,
                     help="per-site fault rate for --chaos-seed")
     ap.add_argument("--priority", type=int, default=0,
@@ -290,8 +292,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.static and args.paged:
         ap.error("--static and --paged are two different engines")
-    if args.chaos_seed is not None and not (args.paged or args.static):
-        ap.error("chaos on the contiguous engine is ROADMAP item 9d-ii")
 
     device = resolve_device(args.device)
     cfg = launcher_config(args.arch, args.tiny, args.quantile_tau,

@@ -19,8 +19,11 @@ engines serve every mode (the contiguous one in its host offload).
 ``engine.LadderConfig``, None for its defaults) sets the degradation
 ladder's thresholds; the engines apply its rungs 1-2 themselves and
 the SLO scheduler (``serving/scheduler.py``) rungs 3-4.  ``chaos`` (a
-``faults.ChaosConfig``) injects faults into the paged engine's guarded
-transfers; the contiguous engine refuses it (ROADMAP item 9d-ii).
+``faults.ChaosConfig``) injects faults into both continuous engines'
+guarded transfers (the fetch ring on both; the boundary tick, staging and
+stash on the paged one) and poisons scheduled steps' entropy.
+``debug_invariants`` makes the paged engine audit every boundary tick
+(``analysis/invariants.py``).
 """
 from __future__ import annotations
 
@@ -65,6 +68,7 @@ class ServingConfig:
     speculative_thaw: Optional[bool] = None     # None -> async_pipeline
     speculative_slots: int = 3
     burst_prefill: bool = True
+    debug_invariants: bool = False              # audit every boundary tick
 
     def __post_init__(self):
         quant.resolve_mode(self.kv_quant)

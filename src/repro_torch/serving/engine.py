@@ -37,16 +37,17 @@ offloaded freeze timers at rung 2; the SLO scheduler
 (``serving/scheduler.py``) throttles admissions at rung 3 and sheds a lane
 at rung 4.
 
-Under ``ServingConfig.chaos`` (a ``faults.ChaosConfig``) the paged engine
-runs its guarded operations through ``faults.Endpoint``s sharing one
-injector: the boundary tick's pull and push, each fetch-ring pop, each
-speculative staging upload (best-effort: a failed one is skipped) and each
-new host-stash allocation (best-effort: the page stays resident).  An open
-ring breaker drops the ring to depth 0 (``_ring_guard``), an open stage
-breaker stops staging, and a scheduled ``nan`` poisons one lane's entropy
-at the commit, which the quarantine rewinds once and retires on a second
-hit within ``quarantine_window``.  The contiguous engine refuses a chaos
-config (ROADMAP item 9d-ii).
+Under ``ServingConfig.chaos`` (a ``faults.ChaosConfig``) both continuous
+engines run their guarded operations through ``faults.Endpoint``s sharing
+one injector.  Each fetch-ring pop is guarded on both; the paged engine
+also guards the boundary tick's pull and push, each speculative staging
+upload (best-effort: a failed one is skipped) and each new host-stash
+allocation (best-effort: the page stays resident).  An open ring breaker
+drops the ring to depth 0 (``_ring_guard``), an open stage breaker stops
+staging, and a scheduled ``nan`` poisons one lane's entropy at the commit,
+which the quarantine rewinds once and retires on a second hit within
+``quarantine_window``.  With ``debug_invariants`` the paged engine audits
+every boundary tick (``analysis/invariants.py``).
 
 Both continuous engines carry the lane lifecycle a preempting scheduler
 drives: ``suspend_lane`` returns a ``LaneSnapshot`` and frees the lane,
@@ -68,6 +69,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.invariants import audit_boundary
 from repro_torch.configs.base import FreezeConfig, ModelConfig
 from repro_torch.core import quant
 from repro_torch.core.cache import HostOffloadController, KVCache
@@ -521,6 +523,18 @@ class _LaneEngineBase:
             return None
         return plan.lane if plan.lane in active else active[0]
 
+    @staticmethod
+    def _poisoned(meta: Dict[str, Any], entropy):
+        """The committed entropy with the step's scheduled logits anomaly
+        (``meta["poison"]``, from ``_poison_lane``) applied to a host
+        copy: where a poisoned step first reaches the host."""
+        poison = meta.get("poison")
+        if poison is None or entropy is None:
+            return entropy
+        entropy = np.array(entropy, np.float32)
+        entropy[poison] = np.nan
+        return entropy
+
     def robust_snapshot(self) -> Dict[str, Any]:
         """Fault, ladder and quarantine counters for serving reports (a
         chaos-less engine reports zeros)."""
@@ -804,9 +818,6 @@ class ContinuousEngine(_LaneEngineBase):
 
     def __init__(self, cfg: ModelConfig, params, serving: ServingConfig,
                  device=None):
-        if serving.chaos is not None:
-            raise NotImplementedError(
-                "chaos on the contiguous engine is ROADMAP item 9d-ii")
         super().__init__(cfg, params, serving, device)
         sv = serving
         self.kv_quant = sv.kv_quant
@@ -909,6 +920,7 @@ class ContinuousEngine(_LaneEngineBase):
         this call when the ring has depth 0).  Returns the requests that
         retired."""
         self.stats.begin_step()
+        self._ring_guard()
         finished = self._retired_backlog + self._drain_ring()
         self._retired_backlog = []
         active = [i for i, l in enumerate(self.lanes) if l.request is not None]
@@ -940,7 +952,8 @@ class ContinuousEngine(_LaneEngineBase):
             arrays["frozen_pages"] = fz[:, :, :n_pages * pg].reshape(
                 fz.shape[0], fz.shape[1], n_pages, pg).all(dim=-1)
         self.ring.push({"kind": "step", "active": active,
-                        "offload": offload}, arrays)
+                        "offload": offload,
+                        "poison": self._poison_lane(active)}, arrays)
         if self.ring.depth == 0:
             finished += self._drain_ring()
         self.stats.end_step()
@@ -957,6 +970,7 @@ class ContinuousEngine(_LaneEngineBase):
         entropy, spike, level = get("entropy"), get("spike"), get("level")
         rr = get("rr_request")
         toks = host["toks"]
+        entropy = self._poisoned(meta, entropy)
         n_layers_attn = max(self.state.freeze.frozen.shape[0], 1)
 
         for i in active:
@@ -1169,6 +1183,7 @@ class PagedContinuousEngine(_LaneEngineBase):
         if sv.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         self.kv_quant = sv.kv_quant
+        self.debug_invariants = sv.debug_invariants
         self.P = sv.max_active_pages
         self.page = self.fcfg.page_size
         self.prefill_chunk = sv.prefill_chunk
@@ -1603,6 +1618,11 @@ class PagedContinuousEngine(_LaneEngineBase):
                        " — freezing is disabled, so nothing swaps "
                        "out; admission should have rejected this"))
             self.tail_slot[:, i] = slots
+        if self.debug_invariants:
+            # the host's one coherent view: after the controller pass,
+            # before the push
+            audit_boundary(self.ctl, pool, fstate, range(len(boundary)),
+                           lane_ids={bi: i for bi, i in enumerate(boundary)})
         self._note_stash_peak()
         self._push_lanes(pool, fstate, boundary, kv=self.ctl.kv_dirty)
         self._run_remaps()
@@ -1617,12 +1637,7 @@ class PagedContinuousEngine(_LaneEngineBase):
         act, fro = get("n_active_slots_lane"), get("n_frozen_pages_lane")
         entropy, spike, level = get("entropy"), get("spike"), get("level")
         rr, thaw_req = get("rr_request"), get("thaw_request")
-        poison = meta.get("poison")
-        if poison is not None and entropy is not None:
-            # a scheduled logits anomaly, injected on a host copy of the
-            # entropy: where the poisoned step first reaches the host
-            entropy = np.array(entropy, np.float32)
-            entropy[poison] = np.nan
+        entropy = self._poisoned(meta, entropy)
 
         for i in decode_lanes:
             res = self.lanes[i].request.telemetry

@@ -20,24 +20,34 @@ The traces follow ``repro``'s ``tests/test_scheduling.py``
 (``TestSchedulerPolicy``) and ``tests/test_faults.py``'s throttle/shed
 test on the tiny model at f32, greedy, with the port's seed-0 weights on
 every side.  ``CHAOS_TRACES`` are ``test_faults.py``'s
-``TestChaosEngine`` scenarios on the paged engine (rate-scheduled DMA
-faults, a ring burst that trips the ring breaker, one and two poisoned
-steps) and their fault-free run, each async and sync.  The gauges also
-hold every side's fault counters (``robust_snapshot``'s endpoint stats,
-injections by site, retries and breaker trips), its ring depth and its
-transfer counts.  No trace reads the wall clock: each side's clock
-advances ``TICK`` on every call, so the deadlines, the EMAs and the cost
-model see the same times on every side and in every run.
+``TestChaosEngine`` scenarios (rate-scheduled DMA faults, a ring burst
+that trips the ring breaker, one and two poisoned steps) and their
+fault-free run, each async and sync, on the paged engine and on the
+contiguous one (whose only guarded transfer is the fetch ring);
+``AUDIT_TRACES`` its auditor run, a faulted paged serve with
+``debug_invariants`` on.  The gauges also hold every side's fault counters
+(``robust_snapshot``'s endpoint stats, injections by site, retries and
+breaker trips), its ring depth and its transfer counts.
+``TENANCY_TRACES`` are ``tests/test_tenancy.py``'s
+``TestSchedulerTenancy`` scenarios (the WFQ pop order, a rate-capped hog,
+a lane cap, the cost model's veto, the untenanted path through a
+controller); with a ``TenancyController`` attached the gauges also hold
+its ``snapshot()``.  No trace reads the wall clock: each side's clock
+advances ``TICK`` on every call (a spec's ``tick``: 0.0 is a frozen
+clock), so the deadlines, the EMAs, the cost model and the token buckets
+see the same times on every side and in every run.
 
 A side is ``(engine module, make)``: ``make(spec, clock)`` builds a
 ``Scheduler`` for a trace's ``spec`` (``port_side`` makes the port's on a
-device; a spec's ``chaos`` is plain data that ``chaos_config`` makes into
-either package's ``ChaosConfig``).  ``EXPECTED`` and ``CHAOS_EXPECTED``
-pin each trace's end, as the reference gives it.
+device; a spec's ``chaos``, ``ladder`` and ``tenancy`` are plain data that
+``serving_kw`` and ``sched_kw`` make into either package's objects).
+``EXPECTED``, ``CHAOS_EXPECTED`` and ``TENANCY_EXPECTED`` pin each trace's
+end, as the reference gives it.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -69,10 +79,13 @@ CHAOS_KEYS = ("endpoints", "injected", "injected_by_site", "retries",
               "breaker_trips")
 TRANSFER_KEYS = ("blocking_d2h", "blocking_h2d", "async_d2h", "async_h2d",
                  "steps", "blocked_steps")
-# test_faults.py's _mk and its two requests (prompt length, new tokens)
-CHAOS_SERVING = dict(max_seq=256, n_lanes=2, max_active_pages=6,
-                     prefill_chunk=16, rewind_cooldown=12,
-                     burst_prefill=False)
+# test_faults.py's _mk and its two requests (prompt length, new tokens);
+# the contiguous engine takes _mk's fields that it reads
+CHAOS_SERVING = {
+    "paged": dict(max_seq=256, n_lanes=2, max_active_pages=6,
+                  prefill_chunk=16, rewind_cooldown=12, burst_prefill=False),
+    "contiguous": dict(max_seq=256, n_lanes=2, rewind_cooldown=12),
+}
 CHAOS_LENS = ((28, 40), (20, 36))
 # TestChaosEngine's chaos configs as plain data (``chaos_config``)
 CHAOS = {
@@ -88,6 +101,9 @@ CHAOS = {
         ("nan", 30): dict(kind="nan", lane=0),
         ("nan", 33): dict(kind="nan", lane=0)}),
 }
+# test_invariant_auditor_clean_run's faults and its one request
+AUDIT_CHAOS = dict(seed=11, rates={"pull": 0.2, "stage": 0.3})
+AUDIT_LENS = ((24, 24),)
 # the foreground's deadline in the preemption traces: its own service
 # (one prefill chunk and 6 decode steps) fits, a background's remaining
 # ~38 steps do not
@@ -95,7 +111,8 @@ PREEMPT_DEADLINE_MS = 40.0
 
 
 class VirtualClock:
-    """Seconds that advance ``tick`` on every call, and by ``advance``."""
+    """Seconds that advance ``tick`` on every call, and by ``advance``
+    (``tick`` 0.0: a frozen clock)."""
 
     def __init__(self, tick: float = TICK):
         self.n, self.tick, self.offset = 0, tick, 0.0
@@ -109,17 +126,43 @@ class VirtualClock:
 
 
 def spec(engine: str, is_async: bool = True, freeze: str = "plain",
-         serving: Dict[str, Any] = None, **sched) -> Dict[str, Any]:
+         serving: Dict[str, Any] = None, tenancy: Dict[str, Any] = None,
+         tick: float = TICK, **sched) -> Dict[str, Any]:
     """A trace's scheduler: ``engine`` "paged", "contiguous" or "static"
-    (an ``Engine`` the scheduler wraps), its serving fields, and the
-    scheduler's keywords; ``ladder`` (thresholds) goes in ``serving``."""
+    (an ``Engine`` the scheduler wraps), its serving fields, the
+    scheduler's keywords, its tenancy controller and its clock's ``tick``;
+    ``ladder`` (thresholds) and ``chaos`` go in ``serving``, ``tenancy`` is
+    ``{"tenants": [TenantConfig fields, ...]}`` (None: no controller)."""
     base = {"paged": PAGED, "contiguous": CONTIGUOUS,
             "static": dict(max_seq=96, enable_freeze=False)}[engine]
     sv = dict(base, **(serving or {}))
     if engine != "static":
         sv["async_pipeline"] = is_async
     return {"engine": engine, "freeze": freeze, "serving": sv,
-            "sched": sched}
+            "sched": sched, "tenancy": tenancy, "tick": tick}
+
+
+def serving_kw(sp: Dict[str, Any], engine_mod, faults_mod) -> Dict[str, Any]:
+    """A spec's serving fields, its ladder and chaos made into the objects
+    of ``engine_mod`` and ``faults_mod`` (either package's modules)."""
+    sv = dict(sp["serving"])
+    if sv.get("ladder") is not None:
+        sv["ladder"] = engine_mod.LadderConfig(**sv["ladder"])
+    if sv.get("chaos") is not None:
+        sv["chaos"] = chaos_config(faults_mod, sv["chaos"])
+    return sv
+
+
+def sched_kw(sp: Dict[str, Any], tenancy_mod, clock) -> Dict[str, Any]:
+    """A spec's scheduler keywords, with its ``TenancyController`` of
+    ``tenancy_mod`` on the scheduler's clock when it has one."""
+    kw = dict(sp["sched"])
+    ten = sp.get("tenancy")
+    if ten is not None:
+        kw["tenancy"] = tenancy_mod.TenancyController(
+            [tenancy_mod.TenantConfig(**t) for t in ten["tenants"]],
+            clock=clock)
+    return kw
 
 
 def _item_key(item) -> Tuple:
@@ -131,6 +174,7 @@ def _item_key(item) -> Tuple:
 def sched_gauges(s) -> Dict[str, Any]:
     """What schedulers in lockstep must agree on after every call."""
     eng = s.engine
+    ten = s.tenancy
     return {
         "queue": [(p, dl, seq, _item_key(it)) for p, dl, seq, it in s.queue],
         "metrics": {u: dict(m) for u, m in s.metrics.items()},
@@ -143,6 +187,7 @@ def sched_gauges(s) -> Dict[str, Any]:
         "robust": {k: eng.robust[k] for k in LADDER_KEYS},
         "chaos": chaos_gauges(eng),
         "engine": LC.gauges(eng),
+        "tenancy": None if ten is None else ten.snapshot(),
     }
 
 
@@ -194,7 +239,7 @@ class SchedLockstep:
 
     def open(self, sp: Dict[str, Any]) -> None:
         """A new scheduler (and engine) on every side, on fresh clocks."""
-        self.clocks = [VirtualClock() for _ in self.makers]
+        self.clocks = [VirtualClock(sp["tick"]) for _ in self.makers]
         self.scheds = [mk(sp, c) for mk, c in zip(self.makers, self.clocks)]
         self.opened.append(self.scheds[-1])
         self.check("open")
@@ -222,16 +267,25 @@ class SchedLockstep:
         return outs
 
     def _each(self, name: str, args) -> List:
-        """``name`` on every side's scheduler, the sides' results agreed;
-        a str in ``args`` names a kept per-side value."""
-        outs = [getattr(s, name)(*[self.kept[x][i] if isinstance(x, str)
-                                   else x for x in args])
-                for i, s in enumerate(self.scheds)]
+        """``name`` (a dotted path from the scheduler, as
+        "tenancy.note_admit") on every side, the sides' results agreed;
+        a str in ``args`` that names a kept per-side value passes it."""
+        outs = []
+        for i, s in enumerate(self.scheds):
+            fn = functools.reduce(getattr, name.split("."), s)
+            outs.append(fn(*[self.kept[x][i] if isinstance(x, str)
+                             and x in self.kept else x for x in args]))
         return self._agree(outs, name)
 
     def call(self, name: str, *args) -> Any:
         """``name`` on every side; returns the last side's result."""
         return self._each(name, args)[-1]
+
+    def set(self, attr: str, value: Any) -> None:
+        """Set a scheduler attribute on every side."""
+        for s in self.scheds:
+            setattr(s, attr, value)
+        self.check(f"set {attr}")
 
     def keep(self, name: str, name_of_call: str, *args) -> Any:
         """``call`` and keep every side's result under ``name``."""
@@ -549,14 +603,15 @@ def trace_shed(d: SchedLockstep) -> None:
     assert [t for _, t in done] == [t for _, t in free]
 
 
-def _chaos(d: SchedLockstep, scenario: str, is_async: bool) -> None:
+def _chaos(d: SchedLockstep, scenario: str, is_async: bool,
+           engine: str = "paged") -> None:
     """``test_faults.py``'s two requests through a FIFO-equivalent
     scheduler on the chaos freeze, under ``CHAOS[scenario]`` ("clean":
-    none), with the scenario's own assertions."""
-    sv = dict(CHAOS_SERVING)
+    none), on ``engine``, with the scenario's own assertions."""
+    sv = dict(CHAOS_SERVING[engine])
     if scenario != "clean":
         sv["chaos"] = CHAOS[scenario]
-    d.open(spec("paged", is_async, freeze="chaos", serving=sv))
+    d.open(spec(engine, is_async, freeze="chaos", serving=sv))
     rng = np.random.RandomState(0)
     for pl, n in CHAOS_LENS:
         d.submit(_prompt(rng, pl), n)
@@ -581,9 +636,146 @@ def _chaos(d: SchedLockstep, scenario: str, is_async: bool) -> None:
         assert ch["injected"] == 0 and statuses == ["completed"] * 2
 
 
-CHAOS_TRACES = {f"chaos_{sc}_{'async' if a else 'sync'}":
-                (lambda d, sc=sc, a=a: _chaos(d, sc, a))
+CHAOS_TRACES = {f"{'' if eng == 'paged' else 'contiguous_'}chaos_{sc}_"
+                f"{'async' if a else 'sync'}":
+                (lambda d, sc=sc, a=a, eng=eng: _chaos(d, sc, a, eng))
+                for eng in ("paged", "contiguous")
                 for sc in ("clean",) + tuple(CHAOS) for a in (True, False)}
+
+
+def _audit(d: SchedLockstep, is_async: bool) -> None:
+    """``test_invariant_auditor_clean_run``: one request through the paged
+    engine under pull and stage faults, ``debug_invariants`` on, so every
+    boundary tick is audited; no violation may be raised."""
+    sv = dict(CHAOS_SERVING["paged"], chaos=AUDIT_CHAOS,
+              debug_invariants=True)
+    d.open(spec("paged", is_async, freeze="chaos", serving=sv))
+    rng = np.random.RandomState(0)
+    for pl, n in AUDIT_LENS:
+        d.submit(_prompt(rng, pl), n)
+    d.run()
+    assert d.calls[-1]["chaos"]["injected"] > 0
+    assert [st for st, _ in d.results().values()] == ["completed"]
+
+
+AUDIT_TRACES = {f"audit_{'async' if a else 'sync'}":
+                (lambda d, a=a: _audit(d, a)) for a in (True, False)}
+
+
+# test_tenancy.py's TestSchedulerTenancy scenarios
+def _tenants(*tenants) -> Dict[str, Any]:
+    return {"tenants": [dict(t) for t in tenants]}
+
+
+def trace_tenancy_wfq(d: SchedLockstep) -> None:
+    """Within a class ``_pop_admissible`` picks the queued tenant with the
+    smallest vtime, not the submission order: 12 tokens a pop cost gold
+    (weight 3) 4 and bronze 12."""
+    d.open(spec("paged", tenancy=_tenants(dict(name="gold", weight=3.0),
+                                          dict(name="bronze", weight=1.0))))
+    rng = np.random.RandomState(0)
+    for t in ("gold", "bronze") * 3:
+        d.submit(rng.randint(0, 32, size=4), 4, tenant=t)
+    order, uid = [], 100
+    while d.sched.queue:
+        tenant = d.call("_pop_admissible").tenant
+        order.append(tenant)
+        uid += 1
+        d.call("tenancy.note_admit", tenant, uid)
+        d.call("tenancy.note_progress", tenant, uid, 12)
+        d.call("tenancy.note_done", tenant, uid, 12)
+    assert order == ["gold", "bronze", "gold", "gold", "bronze",
+                     "bronze"], order
+
+
+def trace_tenancy_rate_cap(d: SchedLockstep) -> None:
+    """On a frozen clock a hog's empty token bucket never refills: both
+    lanes seat a hog before a committed token drains the bucket, so two
+    hog requests complete and the third waits for good, while the
+    uncapped tenant's backlog completes."""
+    d.open(spec("paged", tick=0.0, tenancy=_tenants(
+        dict(name="hog", tokens_per_s=1.0, burst_tokens=1.0),
+        dict(name="ok"))))
+    rng = np.random.RandomState(1)
+    hog = [d.submit(rng.randint(0, 32, size=8), 6, tenant="hog")
+           for _ in range(3)]
+    ok = [d.submit(rng.randint(0, 32, size=8), 6, tenant="ok")
+          for _ in range(3)]
+    d.run()
+    s = d.sched
+    for u in ok:
+        assert len(s.done[u].result) == 6
+    assert d.calls[-1]["tenancy"]["hog"]["throttled_rate"] > 0
+    assert sum(u in s.done for u in hog) == 2 and len(s.queue) == 1
+
+
+def trace_tenancy_lane_cap(d: SchedLockstep) -> None:
+    """``max_lanes=1`` on a 2-lane engine: the capped tenant never holds
+    both lanes despite its backlog, and the spare lane serves the other
+    tenant."""
+    d.open(spec("paged", tenancy=_tenants(dict(name="capped", max_lanes=1),
+                                          dict(name="free"))))
+    rng = np.random.RandomState(2)
+    for _ in range(3):
+        d.submit(rng.randint(0, 32, size=8), 8, tenant="capped")
+    d.submit(rng.randint(0, 32, size=8), 8, tenant="free")
+    while d.sched.queue or d.sched.busy:
+        d.step()
+        assert sum(1 for l in d.sched.engine.lanes if l.request is not None
+                   and l.request.tenant == "capped") <= 1
+    assert d.calls[-1]["tenancy"]["capped"]["throttled_lanes"] > 0
+    assert len(d.sched.done) == 4
+
+
+def trace_tenancy_cost_veto(d: SchedLockstep) -> None:
+    """The cost model with its EMAs set: a suspend and a resume costing
+    far more than the wait veto the preemption of a deadline-missing head;
+    at a negligible cost the same head preempts.  The deadline is
+    ``PREEMPT_DEADLINE_MS``, which the head misses by waiting on the
+    virtual clock (the reference test's 150 ms is for a wall clock)."""
+    rng = np.random.RandomState(3)
+    for cost, expect_veto in ((1e6, True), (1e-9, False)):
+        d.open(spec("paged"))
+        assert d.call("preempt_cost_s") == 0.0
+        for _ in range(2):
+            d.submit(rng.randint(0, 32, size=10), 48, priority=5)
+        for _ in range(10):
+            d.step()
+        d.set("_suspend_s", cost)
+        d.set("_resume_s", cost)
+        assert d.call("preempt_cost_s") == 2 * cost
+        d.submit(rng.randint(0, 32, size=8), 6, priority=0,
+                 deadline_ms=PREEMPT_DEADLINE_MS)
+        d.run()
+        s = d.sched
+        if expect_veto:
+            assert s.n_preempt_skipped_cost >= 1 and s.n_preemptions == 0
+        else:
+            assert s.n_preemptions >= 1
+        assert len(s.done) == 3
+
+
+def trace_tenancy_untenanted(d: SchedLockstep) -> None:
+    """Untenanted requests through a controller are served as with no
+    controller: the same tokens (greedy)."""
+    rng = np.random.RandomState(4)
+    prompts = [_prompt(rng, 10) for _ in range(4)]
+    results = []
+    for ten in (None, _tenants()):
+        d.open(spec("paged", tenancy=ten))
+        uids = [d.submit(p, 8) for p in prompts]
+        d.run()
+        results.append([d.results()[u] for u in uids])
+    assert results[0] == results[1]
+
+
+TENANCY_TRACES = {
+    "tenancy_wfq": trace_tenancy_wfq,
+    "tenancy_rate_cap": trace_tenancy_rate_cap,
+    "tenancy_lane_cap": trace_tenancy_lane_cap,
+    "tenancy_cost_veto": trace_tenancy_cost_veto,
+    "tenancy_untenanted": trace_tenancy_untenanted,
+}
 
 
 TRACES = {
@@ -645,45 +837,125 @@ EXPECTED = {
 }
 
 
-def _chaos_pin(arm, sites, retries=0, trips=0, ring_exhausted=0,
-               quarantine=(0, 0), first=(_C, 40, 10414), short=0):
+# the fault-free chaos run of each engine (async; sync makes one call
+# fewer): calls, decode steps, and requests 1 and 2
+_CHAOS_CLEAN = {
+    "paged": (73, 67, (_C, 40, 10414), (_C, 36, 8991)),
+    "contiguous": (71, 67, (_C, 40, 10009), (_C, 36, 9470)),
+}
+_CHAOS_SITES = {"paged": ("pull", "push", "ring", "stage", "stash"),
+                "contiguous": ("pull", "push", "ring", "stage")}
+
+
+def _chaos_pin(engine, arm, sites, retries=0, trips=0, ring_exhausted=0,
+               quarantine=(0, 0), first=None, short=0):
     """A chaos trace's end (``chaos_end_counts``): the fault-free run's
-    calls and steps on ``arm`` less ``short``, request 1 ``first``,
-    request 2 the clean run's, and the fault counters."""
+    calls and steps on ``engine`` and ``arm`` less ``short``, request 1
+    ``first`` (None: the clean run's), request 2 the clean run's, and the
+    fault counters."""
+    calls, steps, clean1, clean2 = _CHAOS_CLEAN[engine]
     exhausted = {} if sites is None else dict.fromkeys(
-        ("pull", "push", "ring", "stage", "stash"), 0)
+        _CHAOS_SITES[engine], 0)
     if ring_exhausted:
         exhausted["ring"] = ring_exhausted
-    calls = (73 if arm == "async" else 72) - short
-    return dict(_pin(calls, 67 - short, [0, 0, 0], [0, 0], 0,
-                     {1: first, 2: (_C, 36, 8991)}),
+    calls -= (arm == "sync") + short
+    return dict(_pin(calls, steps - short, [0, 0, 0], [0, 0], 0,
+                     {1: first or clean1, 2: clean2}),
                 chaos=dict(injected_by_site=sites or {}, retries=retries,
                            breaker_trips=trips, exhausted=exhausted,
                            quarantine=list(quarantine)))
 
 
-# each chaos trace's end as ``repro``'s paged engine gives it (race-free
-# staging buffers): request 2 is token-identical in every one of them
+# each chaos trace's end as ``repro``'s engines give it (race-free staging
+# buffers): request 2 is token-identical in every one of them.  The
+# contiguous engine guards only its fetch ring, so of the DMA rates only
+# the ring's faults land there
 CHAOS_EXPECTED = {}
 for _arm in ("async", "sync"):
     CHAOS_EXPECTED.update({
-        f"chaos_clean_{_arm}": _chaos_pin(_arm, None),
+        f"chaos_clean_{_arm}": _chaos_pin("paged", _arm, None),
         f"chaos_dma_{_arm}": _chaos_pin(
-            _arm, dict(pull=4, push=4, ring=9, **(
+            "paged", _arm, dict(pull=4, push=4, ring=9, **(
                 {"stage": 14} if _arm == "async" else {})),
             retries=31 if _arm == "async" else 17),
         f"chaos_ring_breaker_{_arm}": _chaos_pin(
-            _arm, {"ring": 4}, retries=28, trips=6, ring_exhausted=12),
+            "paged", _arm, {"ring": 4}, retries=28, trips=6,
+            ring_exhausted=12),
         f"chaos_nan_single_{_arm}": _chaos_pin(
-            _arm, {"nan": 1}, quarantine=(1, 0), first=(_C, 40, 10086)),
+            "paged", _arm, {"nan": 1}, quarantine=(1, 0),
+            first=(_C, 40, 10086)),
         f"chaos_nan_double_{_arm}": _chaos_pin(
-            _arm, {"nan": 2}, quarantine=(1, 1),
+            "paged", _arm, {"nan": 2}, quarantine=(1, 1),
             first=("quarantined", 13, 3097), short=4),
+        f"contiguous_chaos_clean_{_arm}": _chaos_pin(
+            "contiguous", _arm, None),
+        f"contiguous_chaos_dma_{_arm}": _chaos_pin(
+            "contiguous", _arm, {"ring": 9}, retries=9),
+        f"contiguous_chaos_ring_breaker_{_arm}": _chaos_pin(
+            "contiguous", _arm, {"ring": 4}, retries=28, trips=6,
+            ring_exhausted=12),
+        f"contiguous_chaos_nan_single_{_arm}": _chaos_pin(
+            "contiguous", _arm, {"nan": 1}, quarantine=(1, 0),
+            first=(_C, 40, 9041)),
+        f"contiguous_chaos_nan_double_{_arm}": _chaos_pin(
+            "contiguous", _arm, {"nan": 2}, quarantine=(1, 1),
+            first=("quarantined", 13, 3200), short=4),
     })
+# the auditor's faulted paged serve: async also stages (and faults there)
+CHAOS_EXPECTED.update({
+    f"audit_{_arm}": dict(
+        _pin(49 - (_arm == "sync"), 44, [0, 0, 0], [0, 0], 0,
+             {1: (_C, 24, 4673)}),
+        chaos=dict(injected_by_site=dict(pull=2, **(
+            {"stage": 4} if _arm == "async" else {})),
+            retries=6 if _arm == "async" else 2, breaker_trips=0,
+            exhausted=dict.fromkeys(_CHAOS_SITES["paged"], 0),
+            quarantine=[0, 0])) for _arm in ("async", "sync")})
+def _ten(weight, vtime, goodput, admitted, completed, max_lanes=None,
+         tokens_per_s=None, bucket=None, throttled_lanes=0,
+         throttled_rate=0):
+    """One tenant's ``TenancyController.snapshot()`` row at a trace's end
+    (no lane held, nothing cancelled)."""
+    return dict(weight=weight, max_lanes=max_lanes,
+                tokens_per_s=tokens_per_s, vtime=vtime, bucket=bucket,
+                active_lanes=0, goodput_tokens=goodput, admitted=admitted,
+                completed=completed, cancelled=0,
+                throttled_lanes=throttled_lanes,
+                throttled_rate=throttled_rate)
+
+
+# each tenancy trace's end (``tenancy_end_counts``) as ``repro``'s
+# scheduler gives it
+TENANCY_EXPECTED = {
+    "tenancy_wfq": dict(_pin(31, 0, [0, 0, 0], [0, 0], 0, {}), tenancy={
+        "gold": _ten(3.0, 12.0, 36, 3, 3),
+        "bronze": _ten(1.0, 36.0, 36, 3, 3)}),
+    "tenancy_rate_cap": dict(_pin(29, 15, [0, 0, 0], [0, 0], 0, {
+        1: (_C, 6, 1362), 2: (_C, 6, 1358), 4: (_C, 6, 1321),
+        5: (_C, 6, 1600), 6: (_C, 6, 1592)}), tenancy={
+        "hog": _ten(1.0, 12.0, 12, 2, 2, tokens_per_s=1.0, bucket=-11.0,
+                    throttled_rate=11),
+        "ok": _ten(1.0, 18.0, 18, 3, 3)}),
+    "tenancy_lane_cap": dict(_pin(32, 21, [0, 0, 0], [0, 0], 0, {
+        1: (_C, 8, 2471), 2: (_C, 8, 1633), 3: (_C, 8, 1689),
+        4: (_C, 8, 1856)}), tenancy={
+        "capped": _ten(1.0, 24.0, 24, 3, 3, max_lanes=1,
+                       throttled_lanes=10),
+        "free": _ten(1.0, 8.0, 8, 1, 1)}),
+    "tenancy_cost_veto": dict(_pin(129, 53, [1, 0, 0], [0, 0], 32768, {
+        1: (_C, 48, 11592), 2: (_C, 48, 12066), 3: (_C, 6, 1676)}),
+        tenancy=None),
+    "tenancy_untenanted": dict(_pin(50, 14, [0, 0, 0], [0, 0], 0, {
+        1: (_C, 8, 1910), 2: (_C, 8, 2371), 3: (_C, 8, 2590),
+        4: (_C, 8, 2101)}), tenancy={}),
+}
+
 # the traces chip_smoke.py runs card against CPU: the policy and
 # preemption traces, and the throttle/shed trace
 CARD_TRACES = ("fifo", "priority", "preempt_paged_async",
                "preempt_paged_sync", "preempt_contiguous", "shed")
+# and the tenancy trace it runs: a lane cap under a deep backlog
+CARD_TENANCY_TRACES = ("tenancy_lane_cap",)
 
 
 def end_counts(d: SchedLockstep) -> Dict[str, Any]:
@@ -729,26 +1001,29 @@ def port_side(device="cpu", params_cpu=None):
     """``(engine module, make)`` of the port on ``device``."""
     from repro_torch.serving import engine as E
     from repro_torch.serving import faults as F
+    from repro_torch.serving import tenancy as T
     from repro_torch.serving.config import ServingConfig
     from repro_torch.serving.scheduler import Scheduler
     cfgs, params = port_models(params_cpu, device)
 
     def make(sp, clock):
         cfg = cfgs[sp["freeze"]]
-        sv = dict(sp["serving"])
+        sv = serving_kw(sp, E, F)
         if sp["engine"] == "static":
             eng = E.Engine(cfg, params, device=device, **sv)
         else:
-            if sv.get("ladder") is not None:
-                sv["ladder"] = E.LadderConfig(**sv["ladder"])
-            if sv.get("chaos") is not None:
-                sv["chaos"] = chaos_config(F, sv["chaos"])
             cls = E.PagedContinuousEngine if sp["engine"] == "paged" \
                 else E.ContinuousEngine
             eng = cls(cfg, params, ServingConfig(**sv), device=device)
-        return Scheduler(eng, clock=clock, **sp["sched"])
+        return Scheduler(eng, clock=clock, **sched_kw(sp, T, clock))
 
     return E, make
+
+
+def tenancy_end_counts(d: SchedLockstep) -> Dict[str, Any]:
+    """``end_counts`` with the last scheduler's ``tenancy.snapshot()``
+    (None without a controller)."""
+    return dict(end_counts(d), tenancy=d.calls[-1]["tenancy"])
 
 
 def chaos_end_counts(d: SchedLockstep) -> Dict[str, Any]:
@@ -765,7 +1040,10 @@ def chaos_end_counts(d: SchedLockstep) -> Dict[str, Any]:
         quarantine=[rob["quarantine_rewinds"], rob["quarantined"]]))
 
 
+ALL_TRACES = {**TRACES, **CHAOS_TRACES, **AUDIT_TRACES, **TENANCY_TRACES}
+
+
 def run(name: str, sides) -> SchedLockstep:
     d = SchedLockstep(sides)
-    (TRACES.get(name) or CHAOS_TRACES[name])(d)
+    ALL_TRACES[name](d)
     return d

@@ -29,9 +29,16 @@ the least valuable running lane when the stash pressure reaches the shed
 threshold (rung 4); a shed request resumes token-identically on the paged
 engine and retires ``shed-resumed``.
 
+With a ``TenancyController`` (``serving/tenancy.py``) attached, admission
+enforces per-tenant quotas (lane caps, token-rate buckets) and weighted
+fair sharing: within a priority class the queued tenant with the smallest
+WFQ virtual time is admitted first, and every committed decode token
+advances its tenant's vtime by ``1 / weight``.  A quota-blocked head does
+not preempt.  Without a controller, or for requests with no tenant,
+admission is the plain heap order.
+
 ``clock`` is injectable (monotone seconds), so tests run the scheduler on
-a virtual clock.  Tenancy (quotas and weighted fair sharing) is not
-ported: ``tenancy`` must be None.
+a virtual clock; a tenancy controller reads its own ``clock``.
 
 ``StaticScheduler`` pads a fixed batch, runs every lane for max(n_tokens)
 steps, then admits the next batch — head-of-line blocking by design, the
@@ -52,6 +59,7 @@ from repro_torch.serving.engine import (ContinuousEngine, Engine,
                                         LaneSnapshot, PagedContinuousEngine,
                                         Request, RequestStatus)
 from repro_torch.serving.sampling import SamplingParams
+from repro_torch.serving.tenancy import TenancyController
 
 _INF = float("inf")
 
@@ -73,7 +81,8 @@ class Scheduler:
     across classes: a queued request's effective class drops by one for
     every ``aging_s`` seconds it has waited (floored at 0); running lanes
     keep their raw class, so aging changes who is admitted next, never who
-    is preempted."""
+    is preempted.  ``tenancy`` (a ``TenancyController``, None for none)
+    adds per-tenant quotas and fair sharing (module docstring)."""
 
     def __init__(self,
                  engine: Union[Engine, ContinuousEngine,
@@ -82,12 +91,8 @@ class Scheduler:
                  policy: str = "slo",
                  preemption: bool = True,
                  aging_s: Optional[float] = None,
-                 tenancy: Any = None,
+                 tenancy: Optional[TenancyController] = None,
                  clock=time.monotonic, **kw):
-        if tenancy is not None:
-            raise NotImplementedError(
-                "tenancy (quotas and weighted fair sharing) is not ported "
-                "yet: ROADMAP Queue 1 item 9e")
         if policy not in ("slo", "fifo"):
             raise ValueError(f"policy must be 'slo' or 'fifo', not "
                              f"{policy!r}")
@@ -112,6 +117,8 @@ class Scheduler:
         self.n_preemptions = 0
         self.n_cancelled = 0
         self._step_s: Optional[float] = None   # EMA of engine step time
+        # per-tenant quotas and fair sharing; None: plain heap order
+        self.tenancy = tenancy
         # the preemption cost model: EMAs of the measured suspend and
         # resume times; until both are observed ``preempt_cost_s`` is 0.0
         self._suspend_s: Optional[float] = None
@@ -162,6 +169,43 @@ class Scheduler:
     def _pop(self) -> Item:
         return heapq.heappop(self.queue)[-1]
 
+    def _pop_admissible(self) -> Optional[Item]:
+        """Pop the item admission takes next: the heap head without a
+        tenancy controller.  With one, entries of quota-blocked tenants
+        are passed over, and within a class the tenant with the smallest
+        vtime goes first (vtime moves with every committed token, so the
+        order is computed here over a linear scan; the heap key's
+        deadline and seq break ties).  None when nothing is admissible."""
+        if not self.queue:
+            return None
+        if self.tenancy is None:
+            return self._pop()
+        adm: Dict[Optional[str], bool] = {}
+        best_i, best_key = None, None
+        for i, (p, dl, seq, item) in enumerate(self.queue):
+            tenant = _req(item).tenant
+            ok = adm.get(tenant)
+            if ok is None:
+                ok = adm[tenant] = self.tenancy.may_admit(tenant)
+            if not ok:
+                continue
+            key = (p, self.tenancy.vtime(tenant), dl, seq)
+            if best_key is None or key < best_key:
+                best_i, best_key = i, key
+        if best_i is None:
+            return None
+        item = self.queue.pop(best_i)[-1]
+        heapq.heapify(self.queue)
+        return item
+
+    def _note_enqueue(self, req: Request) -> None:
+        if self.tenancy is not None:
+            self.tenancy.note_enqueue(req.tenant)
+
+    def _note_release(self, req: Request) -> None:
+        if self.tenancy is not None:
+            self.tenancy.note_release(req.tenant, req.uid)
+
     def _row(self, req: Request, deadline_t: Optional[float],
              now: float) -> None:
         self._seq += 1
@@ -193,6 +237,7 @@ class Scheduler:
                       slo_tokens_per_s=slo_tokens_per_s, tenant=tenant)
         now = self.clock()
         self._row(req, self._slo_deadline(req, now), now)
+        self._note_enqueue(req)
         self._push(req)
         return self._uid
 
@@ -207,6 +252,7 @@ class Scheduler:
             deadline_t = self._slo_deadline(req, now)
         self._uid = max(self._uid, req.uid)   # keep submit() uids unique
         self._row(req, deadline_t, now)
+        self._note_enqueue(req)
         self._push(req)
         return req.uid
 
@@ -222,6 +268,7 @@ class Scheduler:
         row["seq"] = self._seq
         row.setdefault("tenant", req.tenant)
         self.metrics[req.uid] = row
+        self._note_enqueue(req)
         self._push(item)
 
     def extract_pending(self) -> List[tuple]:
@@ -246,6 +293,9 @@ class Scheduler:
         m["finish_t"] = self.clock()
         m["deadline_hit"] = None      # cancelled: not an SLO sample
         self.n_cancelled += 1
+        if self.tenancy is not None:
+            n = 0 if req.result is None else int(len(req.result))
+            self.tenancy.note_done(req.tenant, req.uid, n, cancelled=True)
 
     def cancel(self, uid: int) -> bool:
         """Cancel a live request (a client disconnect).  A queued snapshot
@@ -290,11 +340,14 @@ class Scheduler:
                 t0 = self.clock()
                 snap = eng.suspend_lane(i)
                 self._obs("_suspend_s", self.clock() - t0)
-                return snap               # None: retired in the flush
+                if snap is not None:      # None: retired in the flush
+                    self._note_release(snap.req)
+                return snap
         return None
 
     def release(self, item: Item) -> None:
         """Requeue a paused item."""
+        self._note_enqueue(_req(item))
         self._push(item)
 
     # ---------------- admission + preemption ---------------- #
@@ -314,13 +367,18 @@ class Scheduler:
                     eng.ladder_cfg.throttle_admissions:
                 eng.robust["ladder_throttle"] += 1
                 return
-            item = heapq.heappop(self.queue)[-1]
+            item = self._pop_admissible()
+            if item is None:
+                return                      # nothing quota-admissible
             if isinstance(item, LaneSnapshot):
                 t0 = self.clock()
                 eng.resume_lane(item)
                 self._obs("_resume_s", self.clock() - t0)
             else:
                 eng.admit(item)
+            if self.tenancy is not None:
+                req = _req(item)
+                self.tenancy.note_admit(req.tenant, req.uid)
             admitted += 1
 
     def _est_service_s(self, item: Item) -> float:
@@ -393,6 +451,9 @@ class Scheduler:
         dl = self._deadline_t(req.uid)
         if dl is None:
             return                      # no deadline, no urgency
+        if self.tenancy is not None and not self.tenancy.may_admit(
+                req.tenant):
+            return                      # a freed lane could not seat it
         running = [i for i, l in enumerate(self.engine.lanes)
                    if l.request is not None]
         wait = self._est_free_s(running)
@@ -424,6 +485,7 @@ class Scheduler:
         if snap is not None:
             self.metrics[vic.uid]["preempted"] += 1
             self.n_preemptions += 1
+            self._note_release(vic)
             self._push(snap)
         # the freed lane is filled by the _admit_free that follows
 
@@ -449,6 +511,7 @@ class Scheduler:
         req.status = RequestStatus.SHED
         self.metrics[req.uid]["shed"] += 1
         eng.robust["ladder_shed"] += 1
+        self._note_release(req)
         self._push(snap)
 
     def _schedule(self) -> None:
@@ -479,9 +542,21 @@ class Scheduler:
         dt = self.clock() - t0
         self._step_s = dt if self._step_s is None \
             else 0.7 * self._step_s + 0.3 * dt
+        ten = self.tenancy
+        if ten is not None:
+            # charge each tenant the tokens its lanes committed (a rewind
+            # shrinks ``generated`` and is not refunded)
+            for l in self.engine.lanes:
+                if l.request is not None:
+                    ten.note_progress(l.request.tenant, l.request.uid,
+                                      len(l.generated))
         for snap in self.engine.drain_suspended():
             self.metrics[snap.req.uid]["preempted"] += 1
             self.n_preemptions += 1
+            if ten is not None:
+                ten.note_progress(snap.req.tenant, snap.req.uid,
+                                  len(snap.generated))
+                ten.note_release(snap.req.tenant, snap.req.uid)
             self._push(snap)
         out = []
         now = self.clock()
@@ -491,6 +566,8 @@ class Scheduler:
             m["finish_t"] = now
             dl = m["deadline_t"]
             m["deadline_hit"] = None if dl is None else bool(now <= dl)
+            if ten is not None:
+                ten.note_done(req.tenant, req.uid, int(len(req.result)))
             out.append(req.uid)
         return out
 

@@ -556,17 +556,26 @@ def test_tiny_scheduler_trace_matches_cpu(card, name):
 
 @pytest.mark.parametrize("name", ["chaos_dma_async",
                                   "chaos_ring_breaker_async",
-                                  "chaos_nan_single_sync"])
+                                  "chaos_nan_single_sync",
+                                  "contiguous_chaos_dma_async",
+                                  "contiguous_chaos_ring_breaker_async",
+                                  "contiguous_chaos_nan_double_sync"])
 def test_tiny_chaos_trace_matches_cpu(card, name):
     """A chaos trace of ``sched_cases`` (DMA faults, the ring breaker's
-    depth-0 fallback, a poisoned step's quarantine rewind) on the card and
-    on the CPU call for call, at the end counts tests/test_torch_faults.py
-    pins against ``repro``, through kernel 1 on every card step."""
+    depth-0 fallback, a poisoned step's quarantine rewind or retirement),
+    on the paged or the contiguous engine, on the card and on the CPU call
+    for call, at the end counts tests/test_torch_faults.py pins against
+    ``repro``; every card step launches kernel 1 (paged) or kernels 2 and
+    3 (contiguous) once a layer."""
     from repro_torch.serving import sched_cases as SC
     cfgs, params = SC.port_models()
-    K.paged_decode_attention_cuda.launches = 0
+    fns = (K.paged_decode_attention_cuda, K2.freeze_decode_attention_cuda,
+           K3.relevance_freeze_cuda)
+    for fn in fns:
+        fn.launches = 0
     d = SC.run(name, [SC.port_side("cpu", params),
                       SC.port_side(card, params)])
     assert SC.chaos_end_counts(d) == SC.CHAOS_EXPECTED[name]
-    assert K.paged_decode_attention_cuda.launches == \
-        d.sched.engine.wall_step * cfgs["chaos"].num_layers
+    n = d.sched.engine.wall_step * cfgs["chaos"].num_layers
+    want = (0, n, n) if name.startswith("contiguous") else (n, 0, 0)
+    assert tuple(fn.launches for fn in fns) == want

@@ -11,9 +11,11 @@ scenarios that need no invariant auditor (rate-scheduled pull, push, ring
 and stage faults; a ring burst past the retry budget that trips the ring
 breaker and drops the fetch ring to depth 0; one poisoned step, rewound;
 two, the second retiring the lane ``quarantined``) and their fault-free
-run go through the port's ``Scheduler`` on its ``PagedContinuousEngine``
-and through ``repro``'s in lockstep (``serving/sched_cases.py``), async
-and sync, on one set of weights.  After every scheduler call the tokens,
+run go through the port's ``Scheduler`` and through ``repro``'s in
+lockstep (``serving/sched_cases.py``), async and sync, on one set of
+weights: on the ``PagedContinuousEngine`` and on the contiguous
+``ContinuousEngine``, whose one guarded transfer is the fetch ring (so of
+the DMA rates only the ring's faults land there).  After every scheduler call the tokens,
 statuses, queue, ``metrics`` rows, quarantine and ladder counters,
 ``robust_snapshot``'s endpoint stats, injections by site, retries and
 breaker trips, the ring's depth and the transfer counts must be equal,
@@ -24,8 +26,8 @@ lane's peer keeps its tokens.
 ``repro``'s async paged engine refills a reused staging buffer before an
 asynchronous read of it has finished (ROADMAP Queue 3), so
 ``_race_free_reference`` gives every reference staging request its own
-buffer.  The contiguous engine refuses a chaos config (ROADMAP item
-9d-ii), and so does the launcher's contiguous mode.
+buffer.  The launcher's contiguous and paged modes both serve under
+``--chaos-seed`` and print the reference's ``chaos:`` line.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python -m pytest -q \\
         tests/test_torch_faults.py
@@ -52,7 +54,8 @@ from repro_torch.models import model as TMD
 from repro_torch.serving import faults as F
 from repro_torch.serving import sched_cases as SC
 from repro_torch.serving.config import ServingConfig
-from repro_torch.serving.engine import ContinuousEngine
+from repro_torch.serving.engine import ContinuousEngine, Request
+from repro_torch.serving.sampling import SamplingParams
 
 # every site an engine endpoint or a router consults, bar the two replica
 # kinds whose plans differ from replica_crash's only by name
@@ -178,11 +181,10 @@ def _sides():
              for n, fz in SC.FREEZE.items()}
 
     def make_ref(sp, clock):
-        sv = dict(sp["serving"])
-        if sv.get("chaos") is not None:
-            sv["chaos"] = SC.chaos_config(RF, sv["chaos"])
-        eng = RE.PagedContinuousEngine(rcfgs[sp["freeze"]], rparams,
-                                       serving=RServingConfig(**sv))
+        cls = RE.PagedContinuousEngine if sp["engine"] == "paged" \
+            else RE.ContinuousEngine
+        eng = cls(rcfgs[sp["freeze"]], rparams,
+                  serving=RServingConfig(**SC.serving_kw(sp, RE, RF)))
         return RScheduler(eng, clock=clock, **sp["sched"])
 
     return ((RE, make_ref), SC.port_side("cpu", tparams))
@@ -210,12 +212,49 @@ def test_chaos_trace_equals_the_reference_after_every_call(scenario, arm):
         assert got == _run("chaos_clean_async").results()
 
 
-def test_contiguous_engine_refuses_chaos():
+@pytest.mark.parametrize("arm", ["async", "sync"])
+@pytest.mark.parametrize("scenario", ["clean"] + sorted(SC.CHAOS))
+def test_contiguous_chaos_trace_equals_the_reference_after_every_call(
+        scenario, arm):
+    """The contiguous engine's trace in lockstep with ``repro``'s, its end
+    as pinned for the card, and the tokens of its fault-free run: every
+    request's, or the poisoned lane's peer's (request 2, lane 1)."""
+    name = f"contiguous_chaos_{scenario}_{arm}"
+    d = _run(name)
+    assert SC.chaos_end_counts(d) == SC.CHAOS_EXPECTED[name], name
+    clean = _run(f"contiguous_chaos_clean_{arm}").results()
+    got = d.results()
+    for uid in ([2] if scenario.startswith("nan") else sorted(clean)):
+        assert got[uid] == clean[uid], (name, uid)
+    if scenario == "clean":
+        assert got == _run("contiguous_chaos_clean_async").results()
+
+
+def test_contiguous_engine_serves_under_chaos():
+    """A chaos config builds the contiguous engine with the ring endpoint
+    on its fetch ring; a poisoned step is rewound and the request still
+    completes, ring faults retried."""
     cfg = get_config("llama3-8b-tiny")
     params = TMD.init_params(cfg, device="cpu")
-    sv = ServingConfig(max_seq=64, n_lanes=1, chaos=F.ChaosConfig(seed=1))
-    with pytest.raises(NotImplementedError, match="9d-ii"):
-        ContinuousEngine(cfg, params, sv, device="cpu")
+    chaos = F.ChaosConfig(seed=1, rates={"ring": 0.3}, explicit={
+        ("nan", 20): F.FaultPlan(kind="nan", lane=0)})
+    eng = ContinuousEngine(cfg, params, ServingConfig(
+        max_seq=64, n_lanes=1, chaos=chaos), device="cpu")
+    assert eng.ring.endpoint is eng.ep_ring is not None
+    req = Request(1, np.arange(1, 9, dtype=np.int32), 20,
+                  SamplingParams.greedy())
+    done, _ = serve.serve_fifo(eng, [req])
+    rs = eng.robust_snapshot()
+    assert [str(r.status) for r in done] == ["completed"]
+    assert len(done[0].result) == 20
+    assert rs["quarantine_rewinds"] == 1 and rs["quarantined"] == 0, rs
+    assert rs["injected_by_site"]["ring"] > 0 and rs["retries"] > 0, rs
+    assert np.isnan(done[0].telemetry.entropy).sum() == 1
+
+
+_CHAOS_LINE = (r"^chaos: injected=(\d+) retries=(\d+) breaker_trips=\d+"
+               r"  ladder: deny=\d+ deepen=\d+ throttle=\d+ shed=\d+"
+               r"  stash peak \d+B$")
 
 
 def test_launcher_chaos_flags_on_the_paged_engine(capsys):
@@ -224,18 +263,22 @@ def test_launcher_chaos_flags_on_the_paged_engine(capsys):
                 "--pages", "4", "--prefill-chunk", "16", "--chaos-seed", "3",
                 "--chaos-rate", "0.2"])
     out = capsys.readouterr().out
-    m = re.search(r"^chaos: injected=(\d+) retries=(\d+) breaker_trips=\d+"
-                  r"  ladder: deny=\d+ deepen=\d+ throttle=\d+ shed=\d+"
-                  r"  stash peak \d+B$", out, re.M)
+    m = re.search(_CHAOS_LINE, out, re.M)
     assert m, out
     assert int(m.group(1)) > 0 and int(m.group(2)) > 0, m.group(0)
     assert "terminal: completed=3" in out and "async pipeline" in out
 
 
-def test_launcher_refuses_chaos_on_the_contiguous_engine(capsys):
-    with pytest.raises(SystemExit) as exit_:
-        serve.main(["--tiny", "--device", "cpu", "--requests", "1",
-                    "--chaos-seed", "3"])
-    assert exit_.value.code != 0
-    assert "chaos on the contiguous engine is ROADMAP item 9d-ii" in \
-        capsys.readouterr().err
+def test_launcher_chaos_flags_on_the_contiguous_engine(capsys):
+    """The default (contiguous) mode serves under ``--chaos-seed``: its
+    ring faults are injected and retried, and the ``chaos:`` line is the
+    reference's."""
+    serve.main(["--tiny", "--device", "cpu", "--requests", "3",
+                "--tokens", "12", "--batch", "2", "--max-seq", "128",
+                "--chaos-seed", "3", "--chaos-rate", "0.3"])
+    out = capsys.readouterr().out
+    m = re.search(_CHAOS_LINE, out, re.M)
+    assert m, out
+    assert int(m.group(1)) > 0 and int(m.group(2)) > 0, m.group(0)
+    assert "terminal: completed=3" in out and "async pipeline" in out
+    assert "batching=continuous" in out

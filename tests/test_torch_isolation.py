@@ -77,18 +77,24 @@ def test_entry_points_raise_without_a_card():
     PagedContinuousEngine(cfg, params, sv, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("chaos", ChaosConfig(seed=1))])
-def test_unported_serving_options_raise(field, value):
-    """A chaos config deploys the paged engine; the contiguous engine's
-    chaos sites are not ported (ROADMAP item 9d-ii) and it raises."""
+def test_chaos_config_builds_both_engines():
+    """A chaos config deploys both continuous engines, each with its
+    injector and the ring endpoint on its fetch ring (the paged one also
+    guards its pull, push, staging and stash)."""
     sv = ServingConfig(max_seq=64, n_lanes=1, max_active_pages=4,
-                       **{field: value})
+                       chaos=ChaosConfig(seed=1))
     cfg = get_config("llama3-8b-tiny")
     params = MD.init_params(cfg, device="cpu")
-    PagedContinuousEngine(cfg, params, sv, device="cpu")
-    with pytest.raises(NotImplementedError, match="9d-ii"):
-        ContinuousEngine(cfg, params, sv.replace(max_active_pages=None),
-                         device="cpu")
+    paged = PagedContinuousEngine(cfg, params, sv, device="cpu")
+    dense = ContinuousEngine(cfg, params, sv.replace(max_active_pages=None),
+                             device="cpu")
+    for eng in (paged, dense):
+        assert eng.injector is not None
+        assert eng.ring.endpoint is eng.ep_ring is not None
+    assert set(paged.robust_snapshot()["endpoints"]) == \
+        {"pull", "push", "ring", "stage", "stash"}
+    assert set(dense.robust_snapshot()["endpoints"]) == \
+        {"pull", "push", "ring", "stage"}
 
 
 @pytest.mark.parametrize("module", ["repro_torch.serving.faults",
@@ -104,6 +110,26 @@ def test_chaos_modules_stand_alone(module):
         assert not bad, bad
         if {module!r}.endswith(".faults"):
             assert "torch" not in sys.modules
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.analysis.invariants",
+                                    "repro_torch.serving.tenancy"])
+def test_auditor_and_tenancy_modules_stand_alone(module):
+    """The invariant auditor and the tenancy controller, each imported
+    alone, load neither JAX, nor any module of the JAX package, nor
+    torch."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({module!r})
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro",
+                                            "torch"))
+        assert not bad, bad
     """)
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-c", code], env=env,

@@ -42,6 +42,8 @@ import torch
 from repro.configs import get_config as rget_config
 from repro.serving import dma as RDMA
 from repro.serving import engine as RE
+from repro.serving import faults as RF
+from repro.serving import tenancy as RT
 from repro.serving.config import ServingConfig as RServingConfig
 from repro.serving.scheduler import Scheduler as RScheduler
 from repro_torch.models import model as TMD
@@ -50,6 +52,7 @@ from repro_torch.serving import sched_cases as SC
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.tenancy import TenancyController, TenantConfig
 
 
 @pytest.fixture(autouse=True)
@@ -86,16 +89,14 @@ def _sides():
 
     def make_ref(sp, clock):
         cfg = rcfgs[sp["freeze"]]
-        sv = dict(sp["serving"])
+        sv = SC.serving_kw(sp, RE, RF)
         if sp["engine"] == "static":
             eng = RE.Engine(cfg, rparams, **sv)
         else:
-            if sv.get("ladder") is not None:
-                sv["ladder"] = RE.LadderConfig(**sv["ladder"])
             cls = RE.PagedContinuousEngine if sp["engine"] == "paged" \
                 else RE.ContinuousEngine
             eng = cls(cfg, rparams, serving=RServingConfig(**sv))
-        return RScheduler(eng, clock=clock, **sp["sched"])
+        return RScheduler(eng, clock=clock, **SC.sched_kw(sp, RT, clock))
 
     return ((RE, make_ref), SC.port_side("cpu", tparams))
 
@@ -186,9 +187,24 @@ def _engine():
                                     ServingConfig(**SC.PAGED), device="cpu")
 
 
-def test_tenancy_is_not_ported():
-    with pytest.raises(NotImplementedError, match="9e"):
-        Scheduler(_engine(), tenancy=object())
+def test_scheduler_builds_and_admits_with_tenancy():
+    """``Scheduler(engine, tenancy=...)`` admits a tenant's request: the
+    lane holds it, and the controller counts the admission, the held lane
+    and, after the retirement, the completion and its tokens."""
+    ten = TenancyController([TenantConfig("gold", weight=3.0)],
+                            clock=SC.VirtualClock())
+    s = Scheduler(_engine(), tenancy=ten, clock=SC.VirtualClock())
+    uid = s.submit(SC._prompt(np.random.RandomState(0), 10), 4,
+                   SamplingParams.greedy(), tenant="gold")
+    s.step()
+    assert [l.request.uid for l in s.engine.lanes
+            if l.request is not None] == [uid]
+    snap = ten.snapshot()["gold"]
+    assert (snap["admitted"], snap["active_lanes"]) == (1, 1), snap
+    s.run()
+    snap = ten.snapshot()["gold"]
+    assert (snap["completed"], snap["active_lanes"]) == (1, 0), snap
+    assert snap["goodput_tokens"] == 4 == len(s.done[uid].result)
 
 
 def test_unknown_policy_raises():
