@@ -79,7 +79,15 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      statuses, endpoint stats, injections, retries, breaker trips,
      quarantine counters, ring depth and transfer counts equal after every
      call, at the end counts tests/test_torch_faults.py and
-     tests/test_torch_invariants.py pin against ``repro``;
+     tests/test_torch_invariants.py pin against ``repro``; the streaming
+     front end (``serving/server_cases.py``: a streamed probe, a cancel
+     beside a peer, a slow consumer paused and resumed, the cancel of a
+     paused request, three tenants with a lane cap, rewind events from a
+     poisoned step; async and sync), the ``AsyncServingEngine`` serve loop
+     run by hand tick by tick, card and CPU in lockstep: stream events,
+     pauses, resumes, the stats JSON, scheduler gauges and engine events
+     equal after every tick, at the end counts tests/test_torch_server.py
+     pins against ``repro``;
   5. main paths — llama3-8b at full published width and depth (bf16 random
      weights made on the card from a seed, once) serves 8 requests of 128
      new tokens through the paged engine and then through the contiguous
@@ -90,13 +98,14 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      serve; the arms' tokens must be identical and the async arm must
      block the host on fewer steps.  A short profiled serve on each async
      engine gives the device busy share, aten ops, kernels and
-     ``aten::sort`` calls a step.  The contiguous int8, SLO, contiguous
-     chaos and tenancy serves below run at full depth too.  The earlier
-     paths that hold themselves against a baseline serve (paged int8
-     pages, stash budgets, the lifecycle, the paged faulted serve) and the
-     Table-1 protocol run at full width with the first ``CUT_LAYERS`` (8)
-     of the 32 layers, against the paged cell (async and ``--no-async``)
-     and the contiguous cell served first at that depth.  The paged
+     ``aten::sort`` calls a step.  The contiguous int8, contiguous
+     chaos, tenancy and HTTP serves below run at full depth too.  The
+     earlier paths that hold themselves against a baseline serve (paged
+     int8 pages, stash budgets, the lifecycle, the paged faulted serve,
+     the SLO scheduler against FIFO) and the Table-1 protocol run at full
+     width with the first ``CUT_LAYERS`` (8) of the 32 layers, against the
+     paged cell (async and ``--no-async``), the contiguous cell and the
+     FIFO arm served at that depth.  The paged
      engine then serves the same
      requests with int8 pages (``kv_quant="int8"``), async and
      ``--no-async``: identical tokens, pages quantized, kernel 1 launched
@@ -122,7 +131,7 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      contiguous engine with a suspension and its re-prefill resume (every
      request complete, the prefix kept, kernels 2 and 3 every step);
      suspend and resume host times and snapshot bytes are printed.  The
-     SLO scheduler at full width: the paged engine (4 lanes, P = 8 + 3,
+     SLO scheduler at full width and 8 layers: the paged engine (4 lanes, P = 8 + 3,
      fixed chunk split, async, recovery off) serves a mixed-SLO trace (4
      long hogs, 8 backgrounds, 4 deadlined foregrounds arriving while the
      lanes are busy) under ``policy="fifo"`` and then ``policy="slo"``,
@@ -148,7 +157,19 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      ``TenancyController``, then untenanted: every request completes,
      tokens identical, the hog never above one lane, the admission order
      changed, each tenant's share of the saturated window's tokens
-     reported against its weight share.
+     reported against its weight share.  The HTTP/SSE front end at full
+     width: the tenanted engine and scheduler behind
+     ``AsyncServingEngine(stream_capacity=16)`` and ``ServingServer`` on
+     port 0: the 12 tenant requests go in before the first step, 11 as
+     ``POST /v1/generate`` from stdlib socket clients and one in process,
+     read by a consumer that waits until it is paused, then drains; a 13th
+     gold request's client leaves after 3 token events.  Every stream
+     replays to its terminal tokens, identical to the untenanted tenancy
+     arm's; the 13th is cancelled; a pause and a resume; the hog on one
+     lane; no lane, exported byte or audit fault left; no unhandled
+     exception; kernel 1 once a layer a step; time to the first token
+     event at the client (p50, p99), tokens/s and the tenants' shares
+     reported.
      ``Engine.generate`` then runs the
      paper's Table-1 protocol (14-token prompt, 500 new tokens) with
      freeze off and on, ``launch/bench_async.py`` its smoke trace on
@@ -158,7 +179,9 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      mixed-SLO smoke on the real clock (``check_scheduling``'s criteria,
      retraces aside; ``chiprun_out/bench_sched.json``) and
      ``launch/bench_chaos.py`` its three chaos scenarios (the 16 criteria
-     of ``check_chaos``; ``chiprun_out/bench_chaos.json``);
+     of ``check_chaos``; ``chiprun_out/bench_chaos.json``) and
+     ``launch/bench_serving.py`` its tenant smoke through the streaming
+     facade (``check_serving``; ``chiprun_out/bench_serving.json``);
   6. kernel timing at the main-path shapes (the paged kernel at the P + S
      layout of the async main path and at P): device time per call from CUDA
      graph replay over rotated input copies (read from HBM, as in the
@@ -2499,19 +2522,22 @@ def _sched_trace(engine_mod, cfg, step_s):
 
 def phase_sched_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
                           params, card_line):
-    """The SLO scheduler at full width: PagedContinuousEngine (4 lanes, P =
-    8 pages of 64 + 3 staging, prefill chunk 256, fixed chunk split,
-    async) with the launcher's freeze settings and recovery off, on the
-    params already on the card.  The step time is calibrated by a short
-    SLO pass on the engine; then the mixed-SLO trace is served under
-    ``policy="fifo"`` and under ``policy="slo"`` on the real clock.  The
-    SLO arm must preempt (``admit_over``), beat FIFO on foreground hit
-    rate and p99, and give every request the FIFO arm's tokens; kernel 1
-    launches 32 times a step in each arm and ``exported_bytes`` ends at 0.
-    Returns each arm's kernel-1 launches."""
+    """The SLO scheduler at full width and ``CUT_LAYERS`` layers:
+    PagedContinuousEngine (4 lanes, P = 8 pages of 64 + 3 staging, prefill
+    chunk 256, fixed chunk split, async) with the launcher's freeze
+    settings and recovery off, on the params already on the card.  The
+    step time is calibrated by a short SLO pass on the engine; then the
+    mixed-SLO trace is served under ``policy="fifo"`` (the baseline, at
+    the same depth) and under ``policy="slo"`` on the real clock.  The SLO
+    arm must preempt (``admit_over``), beat FIFO on foreground hit rate
+    and p99, and give every request the FIFO arm's tokens; kernel 1
+    launches once a layer a step in each arm and ``exported_bytes`` ends
+    at 0.  Returns each arm's kernel-1 launches."""
     from repro_torch.launch import bench_sched
     from repro_torch.serving.scheduler import Scheduler
-    cfg = launcher.launcher_config("llama3-8b", tiny=False, recovery=False)
+    cfg = dataclasses.replace(
+        launcher.launcher_config("llama3-8b", tiny=False, recovery=False),
+        num_layers=CUT_LAYERS)
     sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=SCHED_LANES,
                                max_active_pages=8, prefill_chunk=256,
                                seed=SEED, async_pipeline=True,
@@ -2564,8 +2590,8 @@ def phase_sched_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
         arms[policy] = dict(stats=stats, overs=overs, tokens={
             u: r.result for u, r in done.items()})
         ema = lambda x: "none" if x is None else f"{1e3 * x:.2f} ms"
-        log(f"main path scheduler {policy} [{card_line}], async, no "
-            f"profiler: wall {stats['wall_s']} s, {stats['tokens_per_s']} "
+        log(f"main path scheduler {policy} [{card_line}], "
+            f"{cfg.num_layers} layers, async, no profiler: wall {stats['wall_s']} s, {stats['tokens_per_s']} "
             f"tokens/s, {steps} decode steps ({counts['paged_decode_attention']}"
             f" kernel launches = steps x {cfg.num_layers}), steady tokens/step "
             f"{stats['steady_tokens_per_step']}, blocked_s "
@@ -2853,6 +2879,14 @@ TENANT_TOKENS = 64
 FAIRNESS = (0.5, 1.5)
 
 
+def _tenant_draws(cfg):
+    """The tenant trace's (tenant, prompt) in submission order, from
+    ``RandomState(SEED + 2)``: 700-1000 prompt ids, gold, silver, hog, ..."""
+    rng = np.random.RandomState(SEED + 2)
+    return [(name, rng.randint(0, cfg.vocab_size, rng.randint(700, 1001)))
+            for _ in range(TENANT_REQUESTS) for name, _, _ in TENANTS]
+
+
 def _tenant_serve(torch, engine_mod, cfg, engine, kernels, tenancy):
     """The tenant trace through ``Scheduler(policy="slo")`` on ``engine``,
     with ``tenancy`` (None: the untenanted arm).  Returns the tokens by
@@ -2862,15 +2896,11 @@ def _tenant_serve(torch, engine_mod, cfg, engine, kernels, tenancy):
     the decode steps and the wall seconds."""
     from repro_torch.serving.scheduler import Scheduler
     sched = Scheduler(engine, policy="slo", tenancy=tenancy)
-    rng = np.random.RandomState(SEED + 2)
     greedy = engine_mod.SamplingParams.greedy()
     tenant_of = {}
-    for _ in range(TENANT_REQUESTS):
-        for name, _, _ in TENANTS:
-            uid = sched.submit(
-                rng.randint(0, cfg.vocab_size, rng.randint(700, 1001)),
-                TENANT_TOKENS, greedy, tenant=name)
-            tenant_of[uid] = name
+    for name, prompt in _tenant_draws(cfg):
+        uid = sched.submit(prompt, TENANT_TOKENS, greedy, tenant=name)
+        tenant_of[uid] = name
     n_events, w0 = len(engine.events), engine.wall_step
     hog_lanes, window = 0, None
     _reset_counts(kernels)
@@ -2912,7 +2942,8 @@ def phase_tenancy_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
     untenanted arm's, and kernel 1 launches 32 times a step.  Each tenant's
     share of the committed tokens over the saturated window is reported
     beside its weight share and benchmarks/serving.py's bounds.  Returns
-    kernel 1's launches in each arm."""
+    kernel 1's launches in each arm and the untenanted arm's tokens in
+    draw order."""
     from repro_torch.serving.tenancy import TenancyController, TenantConfig
     cfg = launcher.launcher_config("llama3-8b", tiny=False, recovery=False)
     sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, max_active_pages=8,
@@ -2966,8 +2997,347 @@ def phase_tenancy_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
         f"{len(plain['tokens'])} requests' tokens identical in both arms")
     del engine
     torch.cuda.empty_cache()
-    return [ten["counts"]["paged_decode_attention"],
-            plain["counts"]["paged_decode_attention"]]
+    return ([ten["counts"]["paged_decode_attention"],
+             plain["counts"]["paged_decode_attention"]],
+            [plain["tokens"][u] for u in sorted(plain["tokens"])])
+
+
+def phase_server_reference(kernels):
+    """The streaming front end on the tiny f32 model, greedy: the twelve
+    traces of ``serving/server_cases.py`` (a streamed probe, a cancel
+    beside a peer, a slow consumer paused and resumed, the cancel of a
+    paused request, three tenants with a lane cap, rewind events from a
+    poisoned step; each async and sync), the facade's serve loop run by
+    hand on the CPU (plain versions) and on the card (kernels) in
+    lockstep, one virtual clock a side: every stream's events, the pause
+    and resume counts, the stats JSON, the scheduler's gauges and the
+    engine's events equal after every tick, at the end counts
+    tests/test_torch_server.py pins against ``repro``; kernel 1 once a
+    layer on every card step."""
+    from repro_torch.serving import sched_cases as SC
+    from repro_torch.serving import server as S
+    from repro_torch.serving import server_cases as V
+    cfgs, params_cpu = SC.port_models()
+    sides = [(S, SC.port_side("cpu", params_cpu)[1]),
+             (S, SC.port_side("cuda", params_cpu)[1])]
+    layers = cfgs["plain"].num_layers
+    t_all = time.perf_counter()
+    for name in sorted(V.ALL):
+        _reset_counts(kernels)
+        t0 = time.perf_counter()
+        d = V.run(name, sides)
+        dt = time.perf_counter() - t0
+        launched = _read_counts(kernels)
+        got = V.end_counts(d)
+        assert got == V.EXPECTED[name], (name, got, V.EXPECTED[name])
+        steps = sum(s.engine.wall_step for s in d.opened)
+        want = {"paged_decode_attention": steps * layers,
+                "freeze_decode_attention": 0, "relevance_freeze_update": 0}
+        assert launched == want, (name, launched, want)
+        log(f"reference server {name}: tiny f32 greedy, card == CPU after "
+            f"each of {got['ticks']} ticks (events, pauses/resumes "
+            f"{got['paused']}, stats JSON, scheduler gauges, engine events) "
+            f"in {dt:.1f}s; streams {got['streams']}; kernel 1: "
+            f"{launched['paged_decode_attention']} launches (= {steps} "
+            f"steps x {layers})")
+    log(f"reference server: {len(V.ALL)} traces in "
+        f"{time.perf_counter() - t_all:.1f}s")
+
+
+def phase_bench_serving(torch, kernels, card_line):
+    """``launch/bench_serving.py`` at smoke scale on the card, on the real
+    clock: gold, silver and a hog flood through the ``AsyncServingEngine``
+    on the paged engine (tiny f32), disconnects among them; the JSON it
+    writes must pass ``tools/check_bench.py::check_serving``."""
+    from repro_torch.launch import bench_serving
+    from tools import check_bench
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    bench, full = bench_serving.run_bench(smoke=True, device="cuda",
+                                          seed=SEED)
+    dt = time.perf_counter() - t0
+    launched = _read_counts(kernels)["paged_decode_attention"]
+    for line in bench_serving.summary_lines(bench, full):
+        log(f"  {line}")
+    path = OUT_DIR / "bench_serving.json"
+    path.write_text(json.dumps(dict(bench, report=full, card=card_line),
+                               indent=1))
+    del check_bench.FAILURES[:]
+    check_bench.check_serving(path)
+    assert not check_bench.FAILURES, check_bench.FAILURES
+    bench_serving.check(bench)
+    assert launched > 0, launched
+    ratios = {n: f["ratio"] for n, f in bench["fairness"].items()}
+    log(f"bench_serving smoke [{card_line}] on the card in {dt:.1f}s: "
+        f"check_serving passed; fairness ratios {ratios}, "
+        f"{bench['disconnected_mid_stream']} disconnects, "
+        f"{bench['n_cancelled']} cancelled, paused/resumed "
+        f"{full['server']['n_paused']}/{full['server']['n_resumed']}, "
+        f"{full['steps']} engine steps in {full['wall_s']} s; {launched} "
+        f"kernel launches")
+
+
+# the full-width HTTP serve: the tenancy phase's 12 draws (silver's first,
+# draw 1, submitted in process and read slowly), then a 13th gold request
+# whose client goes away after its third token event
+HTTP_CAPACITY = 16
+HTTP_IN_PROCESS = 1
+HTTP_CANCEL_TOKENS = 128
+HTTP_CANCEL_AFTER = 3
+HTTP_DEADLINE_S = 900.0
+
+
+async def _until(cond, what, deadline):
+    """Wait on ``cond()`` (a coroutine function) with a deadline that only
+    stops a hang."""
+    import asyncio
+    while not await cond():
+        assert time.perf_counter() < deadline, what
+        await asyncio.sleep(0.005)
+
+
+async def _http_generate(port, tenant, prompt, n_tokens, stop_after=None):
+    """One ``POST /v1/generate`` with ``X-Tenant`` over a stdlib socket,
+    its SSE events read to the end, or the socket closed after
+    ``stop_after`` token events.  Returns the events and the seconds from
+    the send to the first token event."""
+    import asyncio
+    r, w = await asyncio.open_connection("127.0.0.1", port)
+    body = json.dumps({"prompt": [int(t) for t in prompt],
+                       "n_tokens": n_tokens}).encode()
+    t0 = time.perf_counter()
+    w.write((f"POST /v1/generate HTTP/1.1\r\nHost: smoke\r\n"
+             f"X-Tenant: {tenant}\r\nContent-Length: {len(body)}\r\n\r\n"
+             ).encode() + body)
+    await w.drain()
+    buf, head, events, first = b"", None, [], None
+    try:
+        while True:
+            chunk = await r.read(1 << 16)
+            if not chunk:
+                break
+            buf += chunk
+            if head is None:
+                if b"\r\n\r\n" not in buf:
+                    continue
+                head, _, buf = buf.partition(b"\r\n\r\n")
+                assert head.startswith(b"HTTP/1.1 200"), head
+            while b"\n\n" in buf:
+                block, _, buf = buf.partition(b"\n\n")
+                kind, data = block.decode().split("\n")
+                events.append(dict(json.loads(data[len("data: "):]),
+                                   event=kind[len("event: "):]))
+                if events[-1]["event"] == "token" and first is None:
+                    first = time.perf_counter() - t0
+            if stop_after is not None and sum(
+                    e["event"] == "token" for e in events) >= stop_after:
+                break
+    finally:
+        w.close()
+    return events, first
+
+
+async def _http_get(port, path):
+    import asyncio
+    r, w = await asyncio.open_connection("127.0.0.1", port)
+    w.write(f"GET {path} HTTP/1.1\r\n\r\n".encode())
+    await w.drain()
+    raw = await r.read()
+    w.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    assert head.startswith(b"HTTP/1.1 200"), head
+    return json.loads(body)
+
+
+def phase_http_main_path(torch, kernels, launcher, engine_mod, cfg_mod, cfg,
+                         params, card_line, plain_tokens, device="cuda"):
+    """The streaming HTTP/SSE front end at full width and depth: the
+    tenancy cell's engine (PagedContinuousEngine, 4 lanes, P = 8 + 3,
+    chunk 256, max_seq 2048, fixed chunk split, async, recovery off,
+    greedy) under ``Scheduler(policy="slo")`` with the tenancy cell's
+    ``TenancyController``, behind ``AsyncServingEngine(stream_capacity=16)``
+    and ``ServingServer(port=0)`` on 127.0.0.1, in this process's own
+    event loop.  The tenancy cell's 12 draws go in before the first
+    scheduler step (the step waits until they are in; the serve loop
+    applies ops meanwhile): 11 as ``POST /v1/generate`` with ``X-Tenant``
+    from stdlib socket clients, and silver's first through
+    ``AsyncServingEngine.submit``, read by a consumer that takes nothing
+    until its queue is full and the request is paused, then drains it.  A
+    13th gold request of 128 tokens follows over HTTP and its client
+    closes the socket after its third token event.  Then ``GET
+    /v1/health`` and ``/v1/stats``.  Each stream replays to its terminal
+    tokens, equal to the same draw's tokens in the untenanted tenancy arm
+    (``plain_tokens``, in draw order); the 13th is cancelled; at least one
+    pause and one resume; the hog never above one lane; after the drain
+    no lane is active, ``exported_bytes`` is 0 and ``audit_controller``
+    runs clean; no unhandled exception; kernel 1 once a layer a step,
+    kernels 2 and 3 never.  Returns kernel 1's launches."""
+    import asyncio
+
+    from repro_torch.analysis.invariants import audit_controller
+    from repro_torch.serving import server_cases as V
+    from repro_torch.serving.scheduler import Scheduler
+    from repro_torch.serving.server import AsyncServingEngine, ServingServer
+    from repro_torch.serving.tenancy import TenancyController, TenantConfig
+    sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, max_active_pages=8,
+                               prefill_chunk=256, seed=SEED,
+                               async_pipeline=True, burst_prefill=False)
+    engine = engine_mod.PagedContinuousEngine(cfg, params, sv, device=device)
+    tenancy = TenancyController(
+        [TenantConfig(n, weight=w, max_lanes=m) for n, w, m in TENANTS])
+    sched = Scheduler(engine, policy="slo", tenancy=tenancy)
+    draws = _tenant_draws(cfg)
+    cancel_prompt = np.random.RandomState(SEED + 3).randint(
+        0, cfg.vocab_size, 800)
+    watch = {"hog": 0, "window": None}
+    step = sched.step
+
+    def step_when_all_in():
+        # strict alternation holds: this runs on the executor thread while
+        # the loop thread waits, so reading the scheduler here is safe
+        if len(sched.metrics) < len(draws):
+            return []
+        out = step()
+        held = [l.request.tenant for l in engine.lanes
+                if l.request is not None]
+        watch["hog"] = max(watch["hog"], held.count("hog"))
+        live = {m["tenant"] for u, m in sched.metrics.items()
+                if u not in sched.done}
+        if watch["window"] is None and len(live) < len(TENANTS):
+            watch["window"] = tenancy.snapshot()
+        return out
+
+    sched.step = step_when_all_in
+    greedy = engine_mod.SamplingParams.greedy()
+
+    async def serve():
+        deadline = time.perf_counter() + HTTP_DEADLINE_S
+        ae = AsyncServingEngine(sched, stream_capacity=HTTP_CAPACITY)
+        srv = ServingServer(ae, port=0)
+        await srv.start()
+        try:
+            t0 = time.perf_counter()
+            clients = [asyncio.ensure_future(_http_generate(
+                srv.port, tenant, prompt, TENANT_TOKENS))
+                for k, (tenant, prompt) in enumerate(draws)
+                if k != HTTP_IN_PROCESS]
+            tenant, prompt = draws[HTTP_IN_PROCESS]
+            stream = await ae.submit(prompt, TENANT_TOKENS, greedy,
+                                     tenant=tenant)
+
+            async def slow_reader():
+                async def paused():
+                    return stream.queue.full() and ae.n_paused >= 1
+                await _until(paused, "the slow reader's request was never "
+                             "paused", deadline)
+                return await stream.collect()
+
+            reader = asyncio.ensure_future(slow_reader())
+
+            async def all_in():
+                st = await ae.stats()
+                return st["streams"] + st["done"] >= len(draws)
+            await _until(all_in, "the 12 requests never went in", deadline)
+            leaver = asyncio.ensure_future(_http_generate(
+                srv.port, "gold", cancel_prompt, HTTP_CANCEL_TOKENS,
+                stop_after=HTTP_CANCEL_AFTER))
+            http = await asyncio.gather(*clients)
+            slow = await reader
+            left, left_first = await leaver
+
+            async def drained():
+                st = await ae.stats()
+                return st["n_cancelled"] >= 1 and st["active_lanes"] == 0 \
+                    and st["queued"] == 0 and st["streams"] == 0
+            await _until(drained, "the serve never drained", deadline)
+            seconds = time.perf_counter() - t0
+            health = await _http_get(srv.port, "/v1/health")
+            stats = await _http_get(srv.port, "/v1/stats")
+        finally:
+            await srv.close()
+        return dict(http=http, slow=slow, left=left, left_first=left_first,
+                    health=health, stats=stats, seconds=seconds)
+
+    w0 = engine.wall_step
+    _reset_counts(kernels)
+    res = asyncio.run(serve())
+    counts = _read_counts(kernels)
+    steps = engine.wall_step - w0
+    stats, health = res["stats"], res["health"]
+    assert stats["unhandled_exceptions"] == 0, stats
+    # every stream replays to its terminal tokens, the untenanted arm's
+    finals = {}
+    for k, (events, _) in zip([k for k in range(len(draws))
+                               if k != HTTP_IN_PROCESS], res["http"]):
+        fin = events[-1]
+        assert fin["event"] == "done" and fin["status"] == "completed", fin
+        assert V.replay(events[:-1]) == fin["tokens"], k
+        finals[k] = fin["tokens"]
+    slow = res["slow"]
+    assert slow["status"] == "completed" and \
+        slow["streamed"] == slow["tokens"], slow["status"]
+    finals[HTTP_IN_PROCESS] = slow["tokens"]
+    for k, toks in sorted(finals.items()):
+        i = _first_divergence(toks, [int(t) for t in plain_tokens[k]])
+        assert i is None and len(toks) == TENANT_TOKENS, \
+            f"HTTP draw {k}: tokens diverge from the untenanted tenancy " \
+            f"arm's at generated token {i}"
+    # the 13th went away after its third token: cancelled
+    left = [r for r in sched.done.values()
+            if r.n_tokens == HTTP_CANCEL_TOKENS]
+    assert len(left) == 1 and str(left[0].status) == "cancelled", left
+    assert sum(e["event"] == "token" for e in res["left"]) >= \
+        HTTP_CANCEL_AFTER
+    assert stats["n_cancelled"] == 1, stats
+    assert stats["n_paused"] >= 1 and stats["n_resumed"] >= 1, stats
+    assert watch["hog"] == 1, watch["hog"]
+    assert engine.n_active_lanes == 0
+    assert engine.robust_snapshot()["exported_bytes"] == 0
+    audit_controller(engine.ctl)
+    assert health["n_lanes"] == 4 and health["n_active_lanes"] == 0, health
+    for name, _, _ in TENANTS:
+        assert stats["tenants"][name]["completed"] == TENANT_REQUESTS, \
+            stats["tenants"]
+    assert counts["paged_decode_attention"] == steps * cfg.num_layers, \
+        (counts, steps)
+    assert counts["freeze_decode_attention"] == 0 and \
+        counts["relevance_freeze_update"] == 0, counts
+    # the report: time to the first token event at the client, tokens/s,
+    # each tenant's share of the saturated window against its weight share
+    firsts = [f for _, f in res["http"]] + [res["left_first"]]
+    tokens = sum(len(r.result) for r in sched.done.values())
+    window = watch["window"]
+    total = sum(t["goodput_tokens"] for t in window.values())
+    wsum = sum(w for _, w, _ in TENANTS)
+    shares = []
+    for name, w, _ in TENANTS:
+        share = window[name]["goodput_tokens"] / max(total, 1)
+        ratio = share / (w / wsum)
+        inside = FAIRNESS[0] <= ratio <= FAIRNESS[1]
+        shares.append(f"{name} {window[name]['goodput_tokens']} tokens, "
+                      f"share {share:.4f} / weight share {w / wsum:.4f} = "
+                      f"{ratio:.4f} ({'inside' if inside else 'OUTSIDE'} "
+                      f"{list(FAIRNESS)})")
+    log(f"main path http [{card_line}], {cfg.num_layers} layers, async, no "
+        f"profiler: {len(draws) + 1} requests (11 + 1 over HTTP, 1 in "
+        f"process) in {res['seconds']:.2f} s, {steps} decode steps "
+        f"({counts['paged_decode_attention']} kernel launches = steps x "
+        f"{cfg.num_layers}), {tokens / res['seconds']:.1f} tokens/s "
+        f"({tokens} committed tokens); time to the first token event at "
+        f"the client over {len(firsts)} HTTP requests: p50 "
+        f"{np.percentile(firsts, 50):.3f} s, p99 "
+        f"{np.percentile(firsts, 99):.3f} s; paused {stats['n_paused']}, "
+        f"resumed {stats['n_resumed']}, cancelled {stats['n_cancelled']} "
+        f"(the 13th kept {len(left[0].result)} tokens), hog at most "
+        f"{watch['hog']} lane; every one of {len(finals)} streams replays "
+        f"to its terminal tokens, identical to the untenanted tenancy "
+        f"arm's; exported_bytes 0, audit clean, unhandled exceptions 0")
+    log(f"main path http [{card_line}]: saturated window {total} committed "
+        f"tokens: {'; '.join(shares)}; health {health}")
+    del engine
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return counts["paged_decode_attention"]
 
 
 def main() -> int:
@@ -2989,7 +3359,14 @@ def main() -> int:
                "freeze_decode_attention": K2.freeze_decode_attention_cuda,
                "relevance_freeze_update": K3.relevance_freeze_cuda}
     t_start = time.perf_counter()
+
+    def mark(what):
+        # where the smoke's time goes, for PERF.md and the next slice
+        log(f"[{time.perf_counter() - t_start:.1f}s after the device check] "
+            f"{what} done")
+
     phase_build((K, K2, K3))
+    mark("build")
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke_cases.txt", "w") as report:
         report.write(f"{card_line}\n")
@@ -2997,6 +3374,7 @@ def main() -> int:
                                  report)
         err2 = phase_contiguous_kernel_cases(torch, CC, K2, K3, R, report)
     per_call = phase_launch_counts(torch, C, CC, K, K2, K3)
+    mark("kernel cases and launch counts")
     phase_reference(K, launcher, MD, engine_mod, cfg_mod)
     phase_contiguous_reference(torch, kernels, launcher, MD, engine_mod,
                                cfg_mod)
@@ -3007,6 +3385,9 @@ def main() -> int:
     phase_lifecycle_reference(K, MD, engine_mod, cfg_mod)
     phase_sched_reference(kernels)
     phase_chaos_reference(kernels)
+    mark("tiny references up to chaos")
+    phase_server_reference(kernels)
+    mark("reference server")
     cfg = _full_width_config(launcher)
     t0 = time.perf_counter()
     params = MD.init_params(cfg, SEED, "cuda")
@@ -3016,26 +3397,37 @@ def main() -> int:
     paged = phase_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
                             params, card_line)
     launches = paged[MAIN_ARMS[0][0]]["launches"]
+    mark("main path paged")
     contiguous = phase_contiguous_main_path(torch, kernels, launcher,
                                             engine_mod, cfg_mod, params,
                                             card_line)
     counts = contiguous[MAIN_ARMS[0][0]]["counts"]
-    sched_launches = phase_sched_main_path(torch, kernels, launcher,
-                                           engine_mod, cfg_mod, params,
-                                           card_line)
+    mark("main path contiguous")
     quant_launches = phase_contiguous_quant_main_path(
         torch, kernels, launcher, engine_mod, cfg_mod,
         _full_width_config(launcher), params, card_line, contiguous)
+    mark("main path contiguous int8")
     chaos_contiguous = phase_chaos_contiguous_main_path(
         torch, kernels, launcher, engine_mod, cfg_mod, params, card_line,
         contiguous)
-    tenancy_launches = phase_tenancy_main_path(torch, kernels, launcher,
-                                               engine_mod, cfg_mod, params,
-                                               card_line)
+    mark("main path contiguous chaos")
+    tenancy_launches, plain_tokens = phase_tenancy_main_path(
+        torch, kernels, launcher, engine_mod, cfg_mod, params, card_line)
+    mark("main path tenancy")
+    http_launches = phase_http_main_path(
+        torch, kernels, launcher, engine_mod, cfg_mod,
+        launcher.launcher_config("llama3-8b", tiny=False, recovery=False),
+        params, card_line, plain_tokens)
+    mark("main path http")
     # earlier paths that compare against a baseline serve, at CUT_LAYERS
     # layers against baselines at that depth
     cut, paged_cut, contiguous_cut = phase_cut_baselines(
         torch, kernels, launcher, engine_mod, cfg_mod, params, card_line)
+    mark("baselines at 8 layers")
+    sched_launches = phase_sched_main_path(torch, kernels, launcher,
+                                           engine_mod, cfg_mod, params,
+                                           card_line)
+    mark("main path scheduler")
     phase_quant_main_path(torch, kernels, launcher, engine_mod, cfg_mod, cut,
                           params, card_line, paged_cut)
     ladder_launches = phase_ladder_main_path(torch, kernels, launcher,
@@ -3047,13 +3439,17 @@ def main() -> int:
     lifecycle = phase_lifecycle_main_path(torch, kernels, engine_mod,
                                           cfg_mod, cut, params, card_line,
                                           paged_cut, contiguous_cut)
+    mark("8-layer int8, ladder, chaos and lifecycle serves")
     phase_table1(torch, kernels, engine_mod, cut, params, card_line)
+    mark("Table 1")
     del params
     torch.cuda.empty_cache()
     phase_bench_async(torch, kernels, card_line)
     phase_bench_quant(torch, kernels, card_line)
     phase_bench_sched(torch, kernels, card_line)
     phase_bench_chaos(torch, kernels, card_line)
+    phase_bench_serving(torch, kernels, card_line)
+    mark("bench twins")
     # kernel 1 at the main path's staged layout (P + S, S reserved; the
     # kernels line) and at the plain P layout of the --no-async arm
     plain_case, staged_case, S = C.staged_layout_pair()
@@ -3078,6 +3474,7 @@ def main() -> int:
              launches_sched_serves=sched_launches,
              launches_chaos_serve=chaos_launches,
              launches_tenancy_serves=tenancy_launches,
+             launches_http_serve=http_launches,
              max_abs_err=err, ms=ms, plain_ms=plain_ms,
              bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
              **{f"{k}_{mode}_pages": v for mode, t in quant_t.items()

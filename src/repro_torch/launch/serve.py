@@ -26,6 +26,8 @@ engines, on the card unless ``--device cpu`` is given:
         --device cpu --background 2 --deadline-ms 500 --priority 0
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged \
         --device cpu --chaos-seed 3 --chaos-rate 0.2
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged \
+        --device cpu --http 0 --tenants gold:3,free:1:1:50
 
 Both continuous engines run the async DMA pipeline by default (the
 per-step fetch is consumed one call later; on ``--paged`` likely thaws are
@@ -60,6 +62,14 @@ priority-9 greedy generations of max(2 x ``--tokens``, 64) tokens with
 32-token prompts first, to contend with.  With deadlines or preemptions
 the summary ends with an ``slo:`` line.
 
+``--http PORT`` serves over HTTP instead of a batch trace: the
+multi-tenant SSE front end of ``serving/server.py`` (``POST
+/v1/generate``, ``GET /v1/health``, ``GET /v1/stats``; PORT 0 picks a free
+port) over one continuous engine until killed; ``--tenants
+NAME:WEIGHT[:LANES[:TPS]],...`` registers tenants for it (weighted fair
+sharing, optional lane and tokens/s caps).  ``http_server`` builds the
+server for parsed arguments and ``serve_until_killed`` runs it.
+
 The freeze settings match ``repro.launch.serve``: ``--quantile-tau q > 0``
 switches to the adaptive quantile threshold with window 16, k_soft 1.0 and
 the absolute entropy threshold off (1e9).  Weights are random from
@@ -69,9 +79,10 @@ free, then step) that tests drive engines with.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import time
-from typing import Iterable, List, Optional, Tuple, Union
+from typing import Callable, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -85,6 +96,8 @@ from repro_torch.serving.engine import (ContinuousEngine, Engine,
 from repro_torch.serving.faults import ChaosConfig
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Scheduler, StaticScheduler
+from repro_torch.serving.server import AsyncServingEngine, ServingServer
+from repro_torch.serving.tenancy import TenancyController, TenantConfig
 
 LaneEngine = Union[ContinuousEngine, PagedContinuousEngine]
 
@@ -208,7 +221,70 @@ def ladder_line(engine: LaneEngine) -> str:
     return line
 
 
-def main(argv=None):
+def tenant_configs(flag: str) -> List[TenantConfig]:
+    """``--tenants NAME:WEIGHT[:LANES[:TPS]],...`` as ``TenantConfig``s
+    (weight 1.0, no lane cap and no rate cap where a field is left out)."""
+    cfgs = []
+    for spec in flag.split(","):
+        f = spec.split(":")
+        cfgs.append(TenantConfig(
+            f[0], weight=float(f[1]) if len(f) > 1 else 1.0,
+            max_lanes=int(f[2]) if len(f) > 2 else None,
+            tokens_per_s=float(f[3]) if len(f) > 3 else None))
+    return cfgs
+
+
+def http_server(args, mk_engine: Callable[[], LaneEngine]) -> ServingServer:
+    """--http: the multi-tenant SSE front end (``serving/server.py``) over
+    one continuous engine from ``mk_engine``, with ``--tenants`` and
+    ``--preempt``, on port ``args.http`` (not started).
+
+        curl -N localhost:PORT/v1/generate -H 'X-Tenant: gold' \\
+             -d '{"prompt": [1, 2, 3], "n_tokens": 32}'
+    """
+    if args.static:
+        raise SystemExit("--http serves one continuous engine "
+                         "(no --static / --replicas)")
+    tenancy = TenancyController(tenant_configs(args.tenants)) \
+        if args.tenants else None
+    sched = Scheduler(mk_engine(), preemption=args.preempt, tenancy=tenancy)
+    return ServingServer(AsyncServingEngine(sched), port=args.http)
+
+
+async def serve_until_killed(srv: ServingServer) -> None:
+    """Start ``srv``, print where it listens, and serve until cancelled."""
+    await srv.start()
+    print(f"serving on http://{srv.host}:{srv.port}  "
+          f"(POST /v1/generate streams SSE; GET /v1/health, "
+          f"/v1/stats)", flush=True)
+    try:
+        await asyncio.Event().wait()
+    finally:
+        await srv.close()
+
+
+def continuous_engine(args, cfg: ModelConfig, params, device) -> LaneEngine:
+    """The continuous engine the flags ask for (``--paged`` or the
+    contiguous default), with its budget and chaos settings."""
+    budget = int(args.stash_budget_mb * 2**20) \
+        if args.stash_budget_mb is not None else None
+    chaos = None
+    if args.chaos_seed is not None:
+        chaos = ChaosConfig(seed=args.chaos_seed,
+                            rates={s: args.chaos_rate for s in
+                                   ("pull", "push", "ring", "stage")})
+    sv = ServingConfig(max_seq=args.max_seq, n_lanes=args.batch,
+                       enable_freeze=not args.no_freeze,
+                       prefill_chunk=args.prefill_chunk,
+                       max_active_pages=args.pages if args.paged else None,
+                       seed=args.seed, async_pipeline=args.async_pipeline,
+                       chaos=chaos, stash_budget_bytes=budget,
+                       kv_quant=args.kv_quant)
+    return (PagedContinuousEngine if args.paged else ContinuousEngine)(
+        cfg, params, sv, device=device)
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b", choices=list_archs())
     ap.add_argument("--tiny", action="store_true",
@@ -287,8 +363,23 @@ def main(argv=None):
                          "lane (stashing its pages to the host on --paged) "
                          "when a deadline would otherwise be missed "
                          "(--no-preempt: admission reordering only)")
+    ap.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve over HTTP instead of driving a batch "
+                         "trace: multi-tenant SSE streaming front end "
+                         "(POST /v1/generate, GET /v1/health, /v1/stats; "
+                         "PORT 0 = ephemeral)")
+    ap.add_argument("--tenants", default=None,
+                    metavar="NAME:WEIGHT[:LANES[:TPS]],...",
+                    help="register tenants for --http, e.g. "
+                         "'gold:3,free:1:1:50' — weighted fair sharing "
+                         "plus optional concurrent-lane and tokens/s caps")
     ap.add_argument("--device", default="cuda",
                     help="torch device ('cuda' or 'cpu')")
+    return ap
+
+
+def main(argv=None):
+    ap = parser()
     args = ap.parse_args(argv)
     if args.static and args.paged:
         ap.error("--static and --paged are two different engines")
@@ -302,6 +393,14 @@ def main(argv=None):
         ("paged-continuous" if args.paged else "continuous")
     print(f"arch={cfg.name} params={n/1e6:.1f}M "
           f"freeze={not args.no_freeze} batching={mode} device={device}")
+    if args.http is not None:
+        srv = http_server(args, lambda: continuous_engine(args, cfg, params,
+                                                          device))
+        try:
+            asyncio.run(serve_until_killed(srv))
+        except KeyboardInterrupt:
+            pass
+        return
     rng = np.random.RandomState(args.seed)
     if args.static:
         engine = Engine(cfg, params, max_seq=args.max_seq,
@@ -317,22 +416,7 @@ def main(argv=None):
         print(served_line(list(sched.done.values()),
                           time.perf_counter() - t0))
         return
-    budget = int(args.stash_budget_mb * 2**20) \
-        if args.stash_budget_mb is not None else None
-    chaos = None
-    if args.chaos_seed is not None:
-        chaos = ChaosConfig(seed=args.chaos_seed,
-                            rates={s: args.chaos_rate for s in
-                                   ("pull", "push", "ring", "stage")})
-    sv = ServingConfig(max_seq=args.max_seq, n_lanes=args.batch,
-                       enable_freeze=not args.no_freeze,
-                       prefill_chunk=args.prefill_chunk,
-                       max_active_pages=args.pages if args.paged else None,
-                       seed=args.seed, async_pipeline=args.async_pipeline,
-                       chaos=chaos, stash_budget_bytes=budget,
-                       kv_quant=args.kv_quant)
-    engine = (PagedContinuousEngine if args.paged else ContinuousEngine)(
-        cfg, params, sv, device=device)
+    engine = continuous_engine(args, cfg, params, device)
     sched = Scheduler(engine, preemption=args.preempt)
     for _ in range(args.background):
         sched.submit(rng.randint(0, cfg.vocab_size, size=32),

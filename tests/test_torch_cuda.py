@@ -4,8 +4,8 @@ its threshold, out of place and in place) against its plain PyTorch
 version on every contract case, each kernel's determinism (two calls on
 the same inputs, bit-identical), the freeze update's one launch a call,
 and the tiny paged and contiguous engines (a lifecycle trace, two SLO
-scheduler traces and three chaos traces among them) on the card going
-through the kernels.  They
+scheduler traces, six chaos traces and the streaming front end's twelve
+lockstep traces among them) on the card going through the kernels.  They
 need a CUDA device and ``nvcc``; elsewhere they skip.  Run them on the card
 with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -22,6 +22,7 @@ from repro_torch.kernels import relevance_freeze as K3
 from repro_torch.kernels.ref import (freeze_decode_attention_ref,
                                      paged_decode_attention_ref,
                                      relevance_freeze_ref)
+from repro_torch.serving import server_cases as SV
 
 CASES = {c.name: c for c in C.tolerance_cases()}
 ATTN_CASES = {c.name: c for c in CC.attn_cases()}
@@ -579,3 +580,21 @@ def test_tiny_chaos_trace_matches_cpu(card, name):
     n = d.sched.engine.wall_step * cfgs["chaos"].num_layers
     want = (0, n, n) if name.startswith("contiguous") else (n, 0, 0)
     assert tuple(fn.launches for fn in fns) == want
+
+
+@pytest.mark.parametrize("name", sorted(SV.ALL))
+def test_tiny_server_trace_matches_cpu(card, name):
+    """A streaming front-end trace of ``server_cases`` (the facade's serve
+    loop by hand: streams, cancels, backpressure, tenants, a rewind event)
+    on the card and on the CPU tick for tick, at the end counts
+    tests/test_torch_server.py pins against ``repro``, through kernel 1 on
+    every card step."""
+    from repro_torch.serving import sched_cases as SC
+    from repro_torch.serving import server as S
+    cfgs, params = SC.port_models()
+    K.paged_decode_attention_cuda.launches = 0
+    d = SV.run(name, [(S, SC.port_side("cpu", params)[1]),
+                      (S, SC.port_side(card, params)[1])])
+    assert SV.end_counts(d) == SV.EXPECTED[name]
+    assert K.paged_decode_attention_cuda.launches == sum(
+        s.engine.wall_step for s in d.opened) * cfgs["plain"].num_layers

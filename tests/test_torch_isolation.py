@@ -62,6 +62,25 @@ def test_scheduler_modules_stand_alone(module):
     assert res.returncode == 0, res.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.serving.server",
+                                    "repro_torch.serving.server_cases",
+                                    "repro_torch.launch.bench_serving"])
+def test_server_modules_stand_alone(module):
+    """Each module of the streaming front end's slice, imported alone,
+    loads neither JAX nor any module of the JAX package."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({module!r})
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
 def test_entry_points_raise_without_a_card():
     cfg = get_config("llama3-8b-tiny")
     if torch.cuda.is_available():
@@ -75,6 +94,18 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--tiny", "--paged", "--requests", "1"])
     PagedContinuousEngine(cfg, params, sv, device="cpu")
+
+
+def test_http_server_and_bench_serving_raise_without_a_card():
+    """``--http`` and the serving twin need a card unless asked for the
+    CPU, like every other entry point."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.launch import bench_serving
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--tiny", "--paged", "--http", "0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_serving.main(["--smoke", "--out", os.devnull])
 
 
 def test_chaos_config_builds_both_engines():
