@@ -32,7 +32,12 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      version
      and within ``QUANT_TOLS`` of the unquantized pages, bit-identical to
      the call without quant operands when no page is flagged, at most two
-     launches a call;
+     launches a call; at olmoe-1b-7b's shapes (H = KVH = 16, G = 1) the
+     paged kernel on the P + S pool at f32 and bf16 and with int8 and fp8
+     pages, and the masked kernel at B = 4, S = 2048 at f32 and bf16,
+     within the same tolerances of their plain versions (bit-identical over
+     two calls, the P and P + S pools bit-identical), and the freeze update
+     exactly on that cache's relevance;
   4. reference check — the tiny model at f32, greedy, served on the card
      through the kernels with the async pipeline and with the synchronous
      one, and on the CPU through the plain versions synchronously: the
@@ -87,7 +92,11 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      run by hand tick by tick, card and CPU in lockstep: stream events,
      pauses, resumes, the stats JSON, scheduler gauges and engine events
      equal after every tick, at the end counts tests/test_torch_server.py
-     pins against ``repro``;
+     pins against ``repro``; olmoe-1b-7b-tiny (every FFN a capacity-routed
+     MoE) on prompts in three power-of-two buckets, the paged engine on a
+     swapping trace and the contiguous engine on a freeze/offload trace,
+     card async and sync against CPU sync: tokens and counters equal,
+     kernel 1 (paged) or kernels 2 and 3 (contiguous) at steps x 2;
   5. main paths — llama3-8b at full published width and depth (bf16 random
      weights made on the card from a seed, once) serves 8 requests of 128
      new tokens through the paged engine and then through the contiguous
@@ -98,12 +107,14 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      serve; the arms' tokens must be identical and the async arm must
      block the host on fewer steps.  A short profiled serve on each async
      engine gives the device busy share, aten ops, kernels and
-     ``aten::sort`` calls a step.  The contiguous int8, contiguous
-     chaos, tenancy and HTTP serves below run at full depth too.  The
+     ``aten::sort`` calls a step.  The contiguous int8 and contiguous
+     chaos serves below run at full depth too.  The
      earlier paths that hold themselves against a baseline serve (paged
      int8 pages, stash budgets, the lifecycle, the paged faulted serve,
-     the SLO scheduler against FIFO) and the Table-1 protocol run at full
-     width with the first ``CUT_LAYERS`` (8) of the 32 layers, against the
+     the SLO scheduler against FIFO, tenancy against its untenanted arm
+     and the HTTP serve against that arm's tokens) and the Table-1
+     protocol run at full width with the first ``CUT_LAYERS`` (8) of the
+     32 layers, against the
      paged cell (async and ``--no-async``), the contiguous cell and the
      FIFO arm served at that depth.  The paged
      engine then serves the same
@@ -169,7 +180,16 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      lane; no lane, exported byte or audit fault left; no unhandled
      exception; kernel 1 once a layer a step; time to the first token
      event at the client (p50, p99), tokens/s and the tenants' shares
-     reported.
+     reported.  The MoE family at full width and depth: olmoe-1b-7b (16
+     layers, d 2048, H = KVH = 16, 64 experts top-8, bf16 random weights
+     made on the card from the seed once llama3-8b's are freed) serves 8
+     greedy requests of 700-1000 prompt ids and 64 new tokens through the
+     paged engine async and ``--no-async`` (4 lanes, P = 8 + 3, chunk 256,
+     max_seq 2048: identical tokens, kernel 1 at steps x 16, kernels 2
+     and 3 not launched) and through the contiguous engine async (kernels
+     2 and 3 at steps x 16); every request gets its 64 tokens, no lane or
+     exported byte is left, and each serve's steps, step median, tokens/s,
+     peak memory and active-KV share (beside llama3-8b's) are printed.
      ``Engine.generate`` then runs the
      paper's Table-1 protocol (14-token prompt, 500 new tokens) with
      freeze off and on, ``launch/bench_async.py`` its smoke trace on
@@ -191,7 +211,11 @@ Phases (any failure exits non-zero without the final ``ok`` line):
      the two-stage path it replaced (PyTorch ``lane_tau``, then the kernel
      with that tau), an empty kernel on its grid (the launch floor), and
      its time at S = 8192 and 32768; the paged kernel also at its
-     quantized layouts (int8, fp8), its bound counting the scales read.
+     quantized layouts (int8, fp8), its bound counting the scales read;
+     the paged kernel at olmoe-1b-7b's P + S layout and the masked kernel
+     at its B = 4, S = 2048 cache (H = KVH = 16) with their bounds and
+     SDPA calls (the freeze update sees only (B, S) state, the shape it is
+     timed at already).
 The line before last is the kernels JSON, the last line the ``ok`` JSON;
 longer reports go to ``chiprun_out/``.
 """
@@ -199,6 +223,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import pathlib
 import statistics
@@ -316,13 +341,14 @@ def phase_kernel_cases(torch, C, K, ref, report):
     return worst[main]
 
 
-def _staged_layout(torch, C, K, run, dtype, report):
+def _staged_layout(torch, C, K, run, dtype, report, shape=None):
     """Kernel 1 on the main-path pages at P and at the async paged engine's
     layout P + S (live K/V and mask bits in the unmapped staging slots),
     told ``reserved_slots=S``: bit-identical output and relevance, so the
     async and sync arms decode the same tokens.  The split it would take
     from P + S itself is checked against the plain version only."""
-    plain, staged, S = C.staged_layout_pair(dtype)
+    plain, staged, S = C.staged_layout_pair(
+        dtype, shape=shape or C.MAIN_PATH_SHAPE)
     P = plain.inputs["page_table"].shape[1]
     out_p, rel_p = run(K.paged_decode_attention_cuda, plain.inputs, dtype)
     xs = C.call_args(C.to_torch(staged.inputs, dtype, "cuda"))
@@ -347,14 +373,15 @@ def _staged_layout(torch, C, K, run, dtype, report):
                  f"reserved_slots={S}\n")
 
 
-def _quantized_layout(torch, C, K, ref, mode, report):
+def _quantized_layout(torch, C, K, ref, mode, report, shape=None):
     """Kernel 1 at the async main path's layout with 13 of its 25 live
     pages quantized in ``mode``, told ``reserved_slots=S`` as the engine
     calls it: within bf16 tolerance of its plain version, within
     ``QUANT_TOLS`` of the unquantized pages, bit-identical over two calls;
     with no page flagged and unit scales, bit-identical to the call without
     quant operands."""
-    q, unflagged, S = C.quantized_layout_pair(mode)
+    q, unflagged, S = C.quantized_layout_pair(
+        mode, shape=shape or C.MAIN_PATH_SHAPE)
 
     def call(fn, inputs, dtype=q.dtype):
         args = C.call_args(C.to_torch(inputs, dtype, "cuda"))
@@ -385,7 +412,12 @@ def _quantized_layout(torch, C, K, ref, mode, report):
     err_f = float(max(np.abs(out_k - out_f).max(),
                       np.abs(rel_k - rel_f).max()))
     n_flag = int((q.inputs["page_quant"] != 0).sum())
-    log(f"kernel 1 quantized layout {mode}: {n_flag} of 25 live pages "
+    pt, vis, sm = (q.inputs[k] for k in ("page_table", "page_visible",
+                                         "slot_mask"))
+    n_live = int(((pt >= 0) & vis & sm.any(-1)).sum())
+    heads = q.inputs["k_pages"].shape[3]
+    log(f"kernel 1 quantized layout {mode}, KVH = {heads}: {n_flag} of "
+        f"{n_live} live pages "
         f"flagged at P + S = {q.inputs['page_table'].shape[1]}, "
         f"reserved_slots={S}: |kernel - plain| {err:.3e} (tolerance "
         f"{q.tols['rtol']:g}), |kernel - unquantized pages| {err_f:.3e} "
@@ -617,8 +649,7 @@ def _reference_trace(K, launcher, MD, engine_mod, cfg_mod, spec):
     """Serve one trace on the card (kernel) async and sync and on the CPU
     (plain) sync; the tokens, rewinds and paging counters must be
     identical, and the sync arms' steps and peak KV too."""
-    import dataclasses
-    cfg = launcher.launcher_config("llama3-8b", tiny=True)
+    cfg = launcher.launcher_config(spec.get("arch", "llama3-8b"), tiny=True)
     cfg = dataclasses.replace(cfg, dtype="float32", freeze=dataclasses.replace(
         cfg.freeze, **spec["freeze"]))
     params_cpu = MD.init_params(cfg, SEED, "cpu")
@@ -756,66 +787,8 @@ def phase_contiguous_reference(torch, kernels, launcher, MD, engine_mod,
     from repro_torch.kernels import ops
     base = launcher.launcher_config("llama3-8b", tiny=True)
     for name, spec in CONTIGUOUS_TRACES.items():
-        cfg = dataclasses.replace(base, dtype="float32",
-                                  freeze=dataclasses.replace(
-                                      base.freeze, **spec["freeze"]))
-        params_cpu = MD.init_params(cfg, SEED, "cpu")
-        rng = np.random.RandomState(SEED)
-        prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
-                   for n in spec["prompts"]]
-        runs = {}
-        params = {"cpu": params_cpu, "cuda": _to_device(params_cpu, "cuda")}
-        for arm, dev, is_async in ARMS:
-            eng = engine_mod.ContinuousEngine(
-                cfg, params[dev], cfg_mod.ServingConfig(
-                    **spec["serving"], async_pipeline=is_async), device=dev)
-            reqs = [engine_mod.Request(u, p, n,
-                                       engine_mod.SamplingParams.greedy())
-                    for u, (p, n) in enumerate(zip(prompts,
-                                                   spec["n_toks"]))]
-            _reset_counts(kernels)
-            with _MarginRecorder(torch, ops, freeze_mod) as rec:
-                launcher.serve_fifo(eng, reqs)
-            off = eng.offloader
-            runs[arm] = dict(
-                tokens=[r.result for r in reqs], steps=eng.wall_step,
-                launched=_read_counts(kernels),
-                rewinds=[r.telemetry.rewinds for r in reqs],
-                frozen=[r.telemetry.frozen_kv for r in reqs],
-                counters=(off.n_offloads, off.n_restores),
-                margin=rec.min_margin(),
-                blocked=eng.stats.host_blocked_fraction)
-        ga, g, c = (runs[a] for a, _, _ in ARMS)
-        for arm in ("card async", "card sync"):
-            for u, (a, b) in enumerate(zip(runs[arm]["tokens"],
-                                           c["tokens"])):
-                i = _first_divergence(a, b)
-                assert i is None, (
-                    f"{name} request {u}: {arm} and CPU tokens diverge at "
-                    f"generated token {i}; smallest |relevance - tau| "
-                    f"margin card {runs[arm]['margin']:.3e}, CPU "
-                    f"{c['margin']:.3e}")
-            for key in ("rewinds", "frozen", "counters"):
-                assert runs[arm][key] == c[key], (name, arm, key,
-                                                  runs[arm][key], c[key])
-            n = runs[arm]["steps"] * cfg.num_layers
-            for k in ("freeze_decode_attention", "relevance_freeze_update"):
-                assert runs[arm]["launched"][k] == n, (arm, runs[arm][
-                    "launched"], n)
-        assert g["steps"] == c["steps"], (g["steps"], c["steps"])
-        assert not any(c["launched"].values()), c["launched"]
-        assert max(max(f) for f in g["frozen"]) > 0, name
-        if name == "freeze_offload":
-            assert g["counters"][0] > 0, g["counters"]
-        else:
-            assert sum(g["rewinds"]) > 0, g["rewinds"]
-        log(f"reference contiguous {name}: tiny f32 greedy, "
-            f"{len(prompts)} requests: card async ({ga['steps']} steps, "
-            f"host-blocked {ga['blocked']:.3f}) == card sync ({g['steps']} "
-            f"steps) == CPU sync tokens and counters, offloads "
-            f"{g['counters'][0]} out / "
-            f"{g['counters'][1]} restored, rewinds {g['rewinds']}; closest "
-            f"freeze decision |relevance - tau| {g['margin']:.3e}")
+        _contiguous_trace(torch, kernels, launcher, MD, engine_mod, cfg_mod,
+                          name, spec)
     # Engine.generate (the Table-1 protocol) at tiny width
     cfg = dataclasses.replace(base, dtype="float32", freeze=dataclasses.
                               replace(base.freeze, page_size=4))
@@ -843,6 +816,77 @@ def phase_contiguous_reference(torch, kernels, launcher, MD, engine_mod,
         f"card == CPU tokens and telemetry, compression "
         f"{100 * rg.compression:.2f}%, offloads {og.n_offloads} out / "
         f"{og.n_restores} restored")
+
+
+def _contiguous_trace(torch, kernels, launcher, MD, engine_mod, cfg_mod,
+                      name, spec):
+    """One contiguous trace on the card (kernels) async and sync and on the
+    CPU (plain versions) sync: identical tokens, rewinds, frozen KV and
+    offload counters, kernels 2 and 3 once a layer a step on the card and
+    never on the CPU, and the trace not vacuous."""
+    from repro_torch.core import freeze as freeze_mod
+    from repro_torch.kernels import ops
+    base = launcher.launcher_config(spec.get("arch", "llama3-8b"), tiny=True)
+    cfg = dataclasses.replace(base, dtype="float32",
+                              freeze=dataclasses.replace(
+                                  base.freeze, **spec["freeze"]))
+    params_cpu = MD.init_params(cfg, SEED, "cpu")
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in spec["prompts"]]
+    runs = {}
+    params = {"cpu": params_cpu, "cuda": _to_device(params_cpu, "cuda")}
+    for arm, dev, is_async in ARMS:
+        eng = engine_mod.ContinuousEngine(
+            cfg, params[dev], cfg_mod.ServingConfig(
+                **spec["serving"], async_pipeline=is_async), device=dev)
+        reqs = [engine_mod.Request(u, p, n,
+                                   engine_mod.SamplingParams.greedy())
+                for u, (p, n) in enumerate(zip(prompts,
+                                               spec["n_toks"]))]
+        _reset_counts(kernels)
+        with _MarginRecorder(torch, ops, freeze_mod) as rec:
+            launcher.serve_fifo(eng, reqs)
+        off = eng.offloader
+        runs[arm] = dict(
+            tokens=[r.result for r in reqs], steps=eng.wall_step,
+            launched=_read_counts(kernels),
+            rewinds=[r.telemetry.rewinds for r in reqs],
+            frozen=[r.telemetry.frozen_kv for r in reqs],
+            counters=(off.n_offloads, off.n_restores),
+            margin=rec.min_margin(),
+            blocked=eng.stats.host_blocked_fraction)
+    ga, g, c = (runs[a] for a, _, _ in ARMS)
+    for arm in ("card async", "card sync"):
+        for u, (a, b) in enumerate(zip(runs[arm]["tokens"],
+                                       c["tokens"])):
+            i = _first_divergence(a, b)
+            assert i is None, (
+                f"{name} request {u}: {arm} and CPU tokens diverge at "
+                f"generated token {i}; smallest |relevance - tau| "
+                f"margin card {runs[arm]['margin']:.3e}, CPU "
+                f"{c['margin']:.3e}")
+        for key in ("rewinds", "frozen", "counters"):
+            assert runs[arm][key] == c[key], (name, arm, key,
+                                              runs[arm][key], c[key])
+        n = runs[arm]["steps"] * cfg.num_layers
+        for k in ("freeze_decode_attention", "relevance_freeze_update"):
+            assert runs[arm]["launched"][k] == n, (arm, runs[arm][
+                "launched"], n)
+    assert g["steps"] == c["steps"], (g["steps"], c["steps"])
+    assert not any(c["launched"].values()), c["launched"]
+    assert max(max(f) for f in g["frozen"]) > 0, name
+    if name == "recovery_rewind":
+        assert sum(g["rewinds"]) > 0, g["rewinds"]
+    else:
+        assert g["counters"][0] > 0, g["counters"]
+    log(f"reference contiguous {name}: tiny f32 greedy, "
+        f"{len(prompts)} requests: card async ({ga['steps']} steps, "
+        f"host-blocked {ga['blocked']:.3f}) == card sync ({g['steps']} "
+        f"steps) == CPU sync tokens and counters, offloads "
+        f"{g['counters'][0]} out / "
+        f"{g['counters'][1]} restored, rewinds {g['rewinds']}; closest "
+        f"freeze decision |relevance - tau| {g['margin']:.3e}")
 
 
 # card-vs-CPU traces with quantized pages: the recovery trace (stash, swap,
@@ -1344,6 +1388,13 @@ def _requests(engine_mod, cfg, rng, uids, new_tokens):
         for u in uids]
 
 
+def _active_share(done):
+    """Mean over requests of the active KV over the whole context at the
+    last step: 1 - the paper's compression (Table 1)."""
+    return float(np.mean([r.telemetry.active_kv[-1]
+                          / max(r.telemetry.total_kv[-1], 1) for r in done]))
+
+
 def _reset_counts(kernels):
     for fn in kernels.values():
         fn.launches = 0
@@ -1374,18 +1425,23 @@ def _cut_config(launcher):
                                num_layers=CUT_LAYERS)
 
 
-def _serve_main(torch, launcher, engine_mod, cfg, engine, kernels):
-    """Serve the main path's 8 requests on ``engine`` with no profiler,
-    the launch counts zeroed just before and read just after, and check
-    what comes out.  Returns (done, counts, timing line, decode steps)."""
-    rng = np.random.RandomState(SEED)
-    reqs = _requests(engine_mod, cfg, rng, range(8), 128)
+def _serve_main(torch, launcher, engine_mod, cfg, engine, kernels,
+                reqs=None):
+    """Serve the main path's 8 requests (or ``reqs``) on ``engine`` with no
+    profiler, the launch counts zeroed just before and read just after,
+    and check what comes out.  Returns (done, counts, timing line, decode
+    steps)."""
+    if reqs is None:
+        reqs = _requests(engine_mod, cfg, np.random.RandomState(SEED),
+                         range(8), 128)
+    want = {r.uid: r.n_tokens for r in reqs}
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(kernels)
     done, seconds, step_ms, _, _ = _fifo(torch, launcher, engine, reqs)
     counts = _read_counts(kernels)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    assert len(done) == 8 and all(len(r.result) == 128 for r in done)
+    assert len(done) == len(want) and all(
+        len(r.result) == want[r.uid] for r in done)
     assert all(0 <= int(t) < cfg.vocab_size for r in done for t in r.result)
     assert all(np.isfinite(r.telemetry.entropy).all() for r in done)
     for line in launcher.summary_lines(engine, done, seconds, 4):
@@ -1475,7 +1531,8 @@ def phase_main_path(torch, kernels, launcher, engine_mod, cfg_mod, params,
                            blocked=engine.stats.host_blocked_fraction,
                            launches=launches,
                            kv_bytes=engine.kv_device_bytes,
-                           peak_stash=engine.peak_stash_bytes)
+                           peak_stash=engine.peak_stash_bytes,
+                           active_share=_active_share(done))
         if is_async:
             _profile_serve(torch, launcher, engine_mod, cfg, engine,
                            card_line, "paged")
@@ -2306,10 +2363,19 @@ def _freeze_timing(torch, CC, K3, R, card_line):
 def phase_contiguous_timing(torch, CC, K2, K3, R, card_line):
     """Kernels 2 and 3 at the contiguous main path's shape: device time per
     call by CUDA-graph replay, bound, plain version, library yardstick."""
+    k2 = _masked_attention_timing(torch, CC, K2, R, card_line,
+                                 CC.main_path_case())
+    k3 = _freeze_timing(torch, CC, K3, R, card_line)
+    return k2, k3
+
+
+def _masked_attention_timing(torch, CC, K2, R, card_line, case):
+    """Kernel 2 on ``case``'s cache: device time per call by CUDA-graph
+    replay over rotated K/V copies, bound, plain version, SDPA."""
     import torch.nn.functional as F
-    case = CC.main_path_case()
     q, k, v, mask = CC.attn_args(case.inputs, case.dtype, "cuda")
-    B, S, H, KVH, hd = CC.MAIN_PATH_SHAPE
+    B, S, KVH, hd = k.shape
+    H = q.shape[1]
     G = H // KVH
     n_copies = 12       # rotated so each launch reads K/V from HBM
     kv = [(k.clone(), v.clone()) for _ in range(n_copies)]
@@ -2347,12 +2413,9 @@ def phase_contiguous_timing(torch, CC, K2, K3, R, card_line):
         f"{100 * bound2 / ms:.1f}% of the published peak, plain "
         f"{plain_ms:.4f} ms, SDPA with a boolean mask over the GQA-expanded "
         f"cache (no relevance) {lib_ms:.4f} ms")
-    k2 = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound2,
-              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-              library_ms=lib_ms)
-
-    k3 = _freeze_timing(torch, CC, K3, R, card_line)
-    return k2, k3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound2,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=lib_ms)
 
 
 def phase_bench_async(torch, kernels, card_line):
@@ -2930,8 +2993,9 @@ def _tenant_serve(torch, engine_mod, cfg, engine, kernels, tenancy):
 
 
 def phase_tenancy_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
-                            params, card_line):
-    """Tenancy at full width: PagedContinuousEngine (4 lanes, P = 8 pages
+                            params, card_line, layers):
+    """Tenancy at full width and ``layers`` layers (``CUT_LAYERS`` since
+    the MoE slice): PagedContinuousEngine (4 lanes, P = 8 pages
     of 64 + 3 staging, prefill chunk 256, async) with the full-width
     scheduler cell's fixed chunk split and recovery off (so greedy tokens
     cannot depend on the admission order), under ``Scheduler(policy=
@@ -2939,13 +3003,15 @@ def phase_tenancy_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
     capped at one lane), then the same 12 requests with no tenancy.  Every
     request completes, the tokens are identical in both arms, the hog never
     holds more than one lane, the admission order differs from the
-    untenanted arm's, and kernel 1 launches 32 times a step.  Each tenant's
+    untenanted arm's, and kernel 1 launches once a layer a step.  Each
+    tenant's
     share of the committed tokens over the saturated window is reported
     beside its weight share and benchmarks/serving.py's bounds.  Returns
     kernel 1's launches in each arm and the untenanted arm's tokens in
     draw order."""
     from repro_torch.serving.tenancy import TenancyController, TenantConfig
-    cfg = launcher.launcher_config("llama3-8b", tiny=False, recovery=False)
+    cfg = dataclasses.replace(launcher.launcher_config(
+        "llama3-8b", tiny=False, recovery=False), num_layers=layers)
     sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, max_active_pages=8,
                                prefill_chunk=256, seed=SEED,
                                async_pipeline=True, burst_prefill=False)
@@ -2965,7 +3031,8 @@ def phase_tenancy_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
             counts["relevance_freeze_update"] == 0, counts
         assert engine.robust_snapshot()["exported_bytes"] == 0
         arms[arm] = res
-        log(f"main path tenancy {arm} [{card_line}], async, no profiler: "
+        log(f"main path tenancy {arm} [{card_line}], {cfg.num_layers} "
+            f"layers, async, no profiler: "
             f"{res['steps']} decode steps in {res['seconds']:.2f} s "
             f"({res['counts']['paged_decode_attention']} kernel launches = "
             f"steps x {cfg.num_layers}), admission order "
@@ -3340,6 +3407,274 @@ def phase_http_main_path(torch, kernels, launcher, engine_mod, cfg_mod, cfg,
     return counts["paged_decode_attention"]
 
 
+# --------------------------------------------------------------------- #
+# The MoE family: olmoe-1b-7b (16 layers, d 2048, H = KVH = 16, every FFN
+# a capacity-routed top-8 of 64 experts)
+# --------------------------------------------------------------------- #
+MOE_ARCH = "olmoe-1b-7b"
+MOE_TOKENS = 64
+
+
+def phase_moe_kernel_cases(torch, C, CC, K, K2, K3, R, report):
+    """Kernels 1 and 2 at olmoe-1b-7b's decode shapes (H = KVH = 16, so
+    G = 1, which no llama3-8b case reaches at full width) against their
+    plain versions with phase 3's tolerances: kernel 1 on the async paged
+    path's P = 8 + 3 pool at f32 and bf16 and with int8 and fp8 pages,
+    called with ``reserved_slots`` as the engine calls it, bit-identical
+    over two calls (and, at f32 and bf16, to the P pool; quantized, within
+    ``QUANT_TOLS`` of the unquantized pages); kernel 2 on the contiguous
+    path's B = 4, S = 2048 cache at f32 and bf16, bit-identical over two
+    calls, relevance 0 on inactive slots; kernel 3 exactly on that cache's
+    relevance (B = 4, S = 2048).  Returns the worst |kernel - plain| of
+    kernels 1 and 2 at bf16 without quantized pages."""
+    dev = torch.device("cuda")
+
+    def run1(fn, inputs, dtype):
+        args = C.call_args(C.to_torch(inputs, dtype, dev))
+        out, rel = fn(*args, reserved_slots=S) \
+            if fn is K.paged_decode_attention_cuda else fn(*args)
+        torch.cuda.synchronize()
+        return out.float().cpu().numpy(), rel.cpu().numpy()
+
+    worst1 = {}
+    for kind in C.MOE_KINDS:
+        case, S = C.moe_case(kind)
+        out_k, rel_k = run1(K.paged_decode_attention_cuda, case.inputs,
+                            case.dtype)
+        _same_twice(run1, K.paged_decode_attention_cuda, case, out_k, rel_k)
+        out_p, rel_p = run1(R.paged_decode_attention_ref, case.inputs,
+                            case.dtype)
+        np.testing.assert_allclose(out_k, out_p, err_msg=case.name,
+                                   **case.tols)
+        np.testing.assert_allclose(rel_k, rel_p, err_msg=case.name,
+                                   **case.tols)
+        for p in case.zero_rel_pages:
+            np.testing.assert_array_equal(rel_k[:, p], 0.0, case.name)
+        if case.full is not None:
+            out_f, rel_f = run1(R.paged_decode_attention_ref, case.full,
+                                "float32")
+            np.testing.assert_allclose(out_k, out_f, err_msg=case.name,
+                                       **C.QUANT_TOLS[case.mode])
+            np.testing.assert_allclose(rel_k, rel_f, err_msg=case.name,
+                                       **C.QUANT_TOLS[case.mode])
+        worst1[case.name] = float(max(np.abs(out_k - out_p).max(),
+                                      np.abs(rel_k - rel_p).max()))
+        report.write(f"{case.name}: max|kernel - plain| = "
+                     f"{worst1[case.name]:.3e} (rtol/atol "
+                     f"{case.tols['rtol']:g})\n")
+
+    def run(fn, inputs, dtype):
+        out, rel = fn(*C.call_args(C.to_torch(inputs, dtype, dev)))
+        torch.cuda.synchronize()
+        return out.float().cpu().numpy(), rel.cpu().numpy()
+
+    for dtype in C.DTYPES:
+        _staged_layout(torch, C, K, run, dtype, report,
+                       shape=C.MOE_MAIN_PATH_SHAPE)
+
+    def run2(fn, inputs, dtype):
+        out, rel = fn(*CC.attn_args(inputs, dtype, dev))
+        torch.cuda.synchronize()
+        return out.float().cpu().numpy(), rel.cpu().numpy()
+
+    worst2, rel_bf16 = {}, None
+    for case in (CC.main_path_case(CC.MOE_MAIN_PATH_SHAPE, dtype)
+                 for dtype in CC.DTYPES):
+        out_k, rel_k = run2(K2.freeze_decode_attention_cuda, case.inputs,
+                            case.dtype)
+        _same_twice(run2, K2.freeze_decode_attention_cuda, case, out_k,
+                    rel_k)
+        out_p, rel_p = run2(R.freeze_decode_attention_ref, case.inputs,
+                            case.dtype)
+        np.testing.assert_allclose(out_k, out_p, err_msg=case.name,
+                                   **case.tols)
+        np.testing.assert_allclose(rel_k, rel_p, err_msg=case.name,
+                                   **case.tols)
+        np.testing.assert_array_equal(
+            rel_k[~case.inputs["active_mask"]], 0.0, case.name)
+        worst2[case.name] = float(max(np.abs(out_k - out_p).max(),
+                                      np.abs(rel_k - rel_p).max()))
+        report.write(f"{case.name}: max|kernel - plain| = "
+                     f"{worst2[case.name]:.3e} (rtol/atol "
+                     f"{case.tols['rtol']:g})\n")
+        if case.dtype == "bfloat16":
+            rel_bf16 = rel_k
+    # kernel 3 on the relevance kernel 2 gives at that shape, with the
+    # contiguous main path's freeze state and settings
+    fcase = {c.name: c for c in CC.freeze_cases()}["main-path-4x2048"]
+    _freeze_case(torch, CC, K3, R, dataclasses.replace(
+        fcase, name="moe-main-path-4x2048",
+        inputs=dict(fcase.inputs, relevance=rel_bf16)), dev, report)
+    k1 = [n for n in worst1 if n.endswith("bfloat16") and "-int8-" not in n
+          and "-fp8-" not in n][0]
+    k2 = [n for n in worst2 if n.endswith("bfloat16")][0]
+    log(f"moe kernel cases (H = KVH = 16, G = 1): kernel 1 on "
+        f"{len(worst1)} cases at P = 8 + {S} (f32, bf16, int8 and fp8 "
+        f"pages; each bit-identical over two calls) worst |kernel - plain| "
+        f"{max(worst1.values()):.3e}, bf16 {worst1[k1]:.3e}; P and P + S "
+        f"pools bit-identical at f32 and bf16; kernel 2 at B = 4, S = 2048 "
+        f"(f32, bf16) worst {max(worst2.values()):.3e}, bf16 "
+        f"{worst2[k2]:.3e}; kernel 3 exact on that relevance")
+    return worst1[k1], worst2[k2]
+
+
+# card-vs-CPU traces of olmoe-1b-7b-tiny (f32, greedy): prompts in three
+# power-of-two buckets (8, 16 and 32; min_prompt_bucket 8), so the left
+# pads that take expert capacity before a prompt's tokens vary
+MOE_FREEZE = dict(page_size=8, window=8, quantile=0.6, k_soft=1.0,
+                  entropy_abs_threshold=0.5, rewalk_tokens=6)
+MOE_TRACES = {
+    "moe_paged": dict(
+        arch=MOE_ARCH, freeze=MOE_FREEZE, prompts=(7, 9, 15, 17),
+        n_toks=(40, 30, 36, 30),
+        serving=dict(max_seq=96, n_lanes=2, max_active_pages=4,
+                     prefill_chunk=8)),
+    "moe_contiguous": dict(
+        arch=MOE_ARCH, freeze=dict(MOE_FREEZE, window=4,
+                                   entropy_abs_threshold=1e9),
+        prompts=(7, 9, 15, 17), n_toks=(40, 30, 36, 30),
+        serving=dict(max_seq=96, n_lanes=2)),
+}
+
+
+def phase_moe_reference(torch, K, kernels, launcher, MD, engine_mod,
+                        cfg_mod):
+    """olmoe-1b-7b-tiny at f32, greedy, card (kernels) against CPU (plain
+    versions): the paged engine async and sync on a swapping trace
+    (kernel 1 at steps x 2), the contiguous engine async and sync on a
+    freeze/offload trace (kernels 2 and 3 at steps x 2); tokens, rewinds
+    and counters equal."""
+    for name, spec in MOE_TRACES.items():
+        cfg = launcher.launcher_config(MOE_ARCH, tiny=True)
+        buckets = sorted({max(8, 1 << (n - 1).bit_length())
+                          for n in spec["prompts"]})
+        assert buckets == [8, 16, 32], buckets
+        if "max_active_pages" in spec["serving"]:
+            ga, gs = _reference_trace(K, launcher, MD, engine_mod, cfg_mod,
+                                      spec)
+            assert ga["counters"][0] > 0, ga["counters"]
+            log(f"reference {name}: {cfg.name} f32 greedy, "
+                f"{len(spec['prompts'])} requests in buckets {buckets}: "
+                f"card async ({ga['steps']} steps, {ga['launched']} kernel 1 "
+                f"launches = steps x {cfg.num_layers}) == card sync "
+                f"({gs['steps']} steps) == CPU sync tokens and counters; "
+                f"swaps {ga['counters'][0]} out / {ga['counters'][1]} in, "
+                f"rewinds {ga['rewinds']}")
+        else:
+            _contiguous_trace(torch, kernels, launcher, MD, engine_mod,
+                              cfg_mod, name, spec)
+
+
+def _moe_config(launcher):
+    cfg = launcher.launcher_config(MOE_ARCH, tiny=False)
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.num_experts,
+            cfg.experts_per_token, cfg.dtype) == \
+        (16, 2048, 16, 16, 128, 1024, 50304, 64, 8, "bfloat16"), cfg
+    return cfg
+
+
+def _moe_requests(engine_mod, cfg):
+    """8 greedy requests of 700-1000 random prompt ids and 64 new tokens,
+    from ``RandomState(SEED + 3)``."""
+    rng = np.random.RandomState(SEED + 3)
+    return [engine_mod.Request(
+        u, rng.randint(0, cfg.vocab_size, rng.randint(700, 1001)).astype(
+            np.int32), MOE_TOKENS, engine_mod.SamplingParams.greedy())
+        for u in range(8)]
+
+
+def phase_moe_main_path(torch, kernels, launcher, engine_mod, cfg_mod, MD,
+                        card_line, llama_share):
+    """olmoe-1b-7b at full width and depth (bf16 random weights made on
+    the card from ``SEED``): PagedContinuousEngine async and --no-async (4
+    lanes, P = 8 + 3, chunk 256, max_seq 2048), then ContinuousEngine
+    async, each serving the same 8 greedy requests of 64 tokens with no
+    profiler.  Every request finishes with 64 tokens, the paged arms are
+    token-identical, kernel 1 launches steps x 16 on the paged serves and
+    kernels 2 and 3 none there, kernels 2 and 3 launch steps x 16 on the
+    contiguous serve, no lane is left and no byte exported.  Returns
+    kernel 1's launches on the paged async serve and kernels 2's and 3's
+    on the contiguous one."""
+    cfg = _moe_config(launcher)
+    gc.collect()                 # engines of earlier phases in cycles
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    params = MD.init_params(cfg, SEED, "cuda")
+    torch.cuda.synchronize()
+    n_params = MD.param_count(params)
+    # the config's count (roofline) leaves out the final norm
+    assert n_params == cfg.param_count() + cfg.d_model, n_params
+    log(f"moe main path: {cfg.name} {n_params / 1e9:.3f}B params "
+        f"({cfg.active_param_count() / 1e9:.3f}B active a token) bf16 made "
+        f"on the card in {time.perf_counter() - t0:.1f}s; "
+        f"{held:.2f} GiB allocated before them")
+
+    def own_peak():
+        return (f"peak allocated less what was held before the weights "
+                f"{torch.cuda.max_memory_allocated() / 2**30 - held:.2f} "
+                f"GiB")
+    arms, out = {}, {}
+    for label, is_async in MAIN_ARMS:
+        sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4,
+                                   max_active_pages=8, prefill_chunk=256,
+                                   seed=SEED, async_pipeline=is_async)
+        engine = engine_mod.PagedContinuousEngine(cfg, params, sv,
+                                                  device="cuda")
+        done, counts, timing, steps = _serve_main(
+            torch, launcher, engine_mod, cfg, engine, kernels,
+            _moe_requests(engine_mod, cfg))
+        launches = counts["paged_decode_attention"]
+        assert launches == steps * cfg.num_layers, (launches, steps)
+        assert counts["freeze_decode_attention"] == 0 and \
+            counts["relevance_freeze_update"] == 0, counts
+        assert all(l.request is None for l in engine.lanes)
+        assert engine.robust_snapshot()["exported_bytes"] == 0
+        assert engine.S_stage == (3 if is_async else 0)
+        ctl = engine.ctl
+        assert not ctl.store and not ctl.frozen_meta
+        share = _active_share(done)
+        log(f"moe main path paged {label} [{card_line}], no profiler: "
+            f"{steps} decode steps, {launches} kernel 1 launches (= steps x "
+            f"{cfg.num_layers}), pool P = {engine.P} + {engine.S_stage} a "
+            f"lane; {timing}; swaps {ctl.n_swap_out} out / {ctl.n_swap_in} "
+            f"in / {ctl.n_thaw} thawed; "
+            f"{sum(r.telemetry.rewinds for r in done)} rewinds; active-KV "
+            f"share at the last step {share:.4f} (compression "
+            f"{1 - share:.4f}; llama3-8b's paged serve {llama_share:.4f}); "
+            f"{own_peak()}")
+        arms[label] = dict(tokens={r.uid: r.result for r in done},
+                           blocked=engine.stats.host_blocked_fraction)
+        out.setdefault("paged", launches)
+        del engine
+        torch.cuda.empty_cache()
+    _same_tokens(arms, "moe paged")
+    sv = cfg_mod.ServingConfig(max_seq=2048, n_lanes=4, prefill_chunk=256,
+                               seed=SEED, async_pipeline=True)
+    engine = engine_mod.ContinuousEngine(cfg, params, sv, device="cuda")
+    done, counts, timing, steps = _serve_main(
+        torch, launcher, engine_mod, cfg, engine, kernels,
+        _moe_requests(engine_mod, cfg))
+    for name in ("freeze_decode_attention", "relevance_freeze_update"):
+        assert counts[name] == steps * cfg.num_layers, (name, counts, steps)
+    assert counts["paged_decode_attention"] == 0, counts
+    assert all(l.request is None for l in engine.lanes)
+    assert engine.robust_snapshot()["exported_bytes"] == 0
+    off = engine.offloader
+    share = _active_share(done)
+    log(f"moe main path contiguous async [{card_line}], no profiler: "
+        f"{steps} decode steps, {counts['freeze_decode_attention']} kernel 2 "
+        f"and {counts['relevance_freeze_update']} kernel 3 launches (each = "
+        f"steps x {cfg.num_layers}); {timing}; offloads {off.n_offloads} out "
+        f"/ {off.n_restores} restored; active-KV share at the last step "
+        f"{share:.4f} (compression {1 - share:.4f}); {own_peak()}")
+    out.update(counts)
+    del engine, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     name, count, card_line = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
@@ -3373,6 +3708,7 @@ def main() -> int:
         err = phase_kernel_cases(torch, C, K, R.paged_decode_attention_ref,
                                  report)
         err2 = phase_contiguous_kernel_cases(torch, CC, K2, K3, R, report)
+        moe_err = phase_moe_kernel_cases(torch, C, CC, K, K2, K3, R, report)
     per_call = phase_launch_counts(torch, C, CC, K, K2, K3)
     mark("kernel cases and launch counts")
     phase_reference(K, launcher, MD, engine_mod, cfg_mod)
@@ -3388,6 +3724,8 @@ def main() -> int:
     mark("tiny references up to chaos")
     phase_server_reference(kernels)
     mark("reference server")
+    phase_moe_reference(torch, K, kernels, launcher, MD, engine_mod, cfg_mod)
+    mark("reference moe")
     cfg = _full_width_config(launcher)
     t0 = time.perf_counter()
     params = MD.init_params(cfg, SEED, "cuda")
@@ -3411,19 +3749,23 @@ def main() -> int:
         torch, kernels, launcher, engine_mod, cfg_mod, params, card_line,
         contiguous)
     mark("main path contiguous chaos")
-    tenancy_launches, plain_tokens = phase_tenancy_main_path(
-        torch, kernels, launcher, engine_mod, cfg_mod, params, card_line)
-    mark("main path tenancy")
-    http_launches = phase_http_main_path(
-        torch, kernels, launcher, engine_mod, cfg_mod,
-        launcher.launcher_config("llama3-8b", tiny=False, recovery=False),
-        params, card_line, plain_tokens)
-    mark("main path http")
     # earlier paths that compare against a baseline serve, at CUT_LAYERS
     # layers against baselines at that depth
     cut, paged_cut, contiguous_cut = phase_cut_baselines(
         torch, kernels, launcher, engine_mod, cfg_mod, params, card_line)
     mark("baselines at 8 layers")
+    # tenancy and the HTTP serve at CUT_LAYERS together: the HTTP streams
+    # are held against the untenanted tenancy arm's tokens
+    tenancy_launches, plain_tokens = phase_tenancy_main_path(
+        torch, kernels, launcher, engine_mod, cfg_mod, params, card_line,
+        CUT_LAYERS)
+    mark("main path tenancy at 8 layers")
+    http_launches = phase_http_main_path(
+        torch, kernels, launcher, engine_mod, cfg_mod,
+        dataclasses.replace(launcher.launcher_config(
+            "llama3-8b", tiny=False, recovery=False), num_layers=CUT_LAYERS),
+        params, card_line, plain_tokens)
+    mark("main path http at 8 layers")
     sched_launches = phase_sched_main_path(torch, kernels, launcher,
                                            engine_mod, cfg_mod, params,
                                            card_line)
@@ -3444,6 +3786,10 @@ def main() -> int:
     mark("Table 1")
     del params
     torch.cuda.empty_cache()
+    moe = phase_moe_main_path(torch, kernels, launcher, engine_mod, cfg_mod,
+                              MD, card_line,
+                              paged[MAIN_ARMS[0][0]]["active_share"])
+    mark("main path moe")
     phase_bench_async(torch, kernels, card_line)
     phase_bench_quant(torch, kernels, card_line)
     phase_bench_sched(torch, kernels, card_line)
@@ -3464,6 +3810,15 @@ def main() -> int:
         quant_t[mode] = phase_timing(torch, C, K, R.paged_decode_attention_ref,
                                      card_line, q, S, library=False)
     k2, k3 = phase_contiguous_timing(torch, CC, K2, K3, R, card_line)
+    # kernels 1 and 2 at olmoe-1b-7b's shapes (H = KVH = 16); kernel 3
+    # sees only (B, S) state, the shape it is timed at above
+    _, moe_staged, S = C.staged_layout_pair(shape=C.MOE_MAIN_PATH_SHAPE)
+    moe_t1 = phase_timing(torch, C, K, R.paged_decode_attention_ref,
+                          card_line, moe_staged, S)
+    moe_k2 = _masked_attention_timing(
+        torch, CC, K2, R, card_line,
+        CC.main_path_case(CC.MOE_MAIN_PATH_SHAPE))
+    timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [
         dict(name="paged_decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_decode_attn.cu",
@@ -3475,6 +3830,8 @@ def main() -> int:
              launches_chaos_serve=chaos_launches,
              launches_tenancy_serves=tenancy_launches,
              launches_http_serve=http_launches,
+             launches_moe_serve=moe["paged"], max_abs_err_moe=moe_err[0],
+             **{f"{k}_moe": v for k, v in zip(timing_keys, moe_t1)},
              max_abs_err=err, ms=ms, plain_ms=plain_ms,
              bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
              **{f"{k}_{mode}_pages": v for mode, t in quant_t.items()
@@ -3487,6 +3844,9 @@ def main() -> int:
              launches_lifecycle_serves=lifecycle["contiguous"][
                  "freeze_decode_attention"],
              launches_chaos_serve=chaos_contiguous["freeze_decode_attention"],
+             launches_moe_serve=moe["freeze_decode_attention"],
+             max_abs_err_moe=moe_err[1],
+             **{f"{k}_moe": v for k, v in moe_k2.items()},
              max_abs_err=err2, **k2),
         dict(name="relevance_freeze_update", route="cuda",
              source="src/repro_torch/kernels/csrc/relevance_freeze.cu",
@@ -3496,6 +3856,7 @@ def main() -> int:
              launches_lifecycle_serves=lifecycle["contiguous"][
                  "relevance_freeze_update"],
              launches_chaos_serve=chaos_contiguous["relevance_freeze_update"],
+             launches_moe_serve=moe["relevance_freeze_update"],
              max_abs_err=0.0, **k3),
     ]
     kernels_line = {"kernels": rows}

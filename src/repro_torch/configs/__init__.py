@@ -1,7 +1,8 @@
-"""Architecture registry of the port: ``get_config("llama3-8b")`` and its
-``-tiny`` variant.  The config dataclasses are copies of ``repro.configs``
-so the port depends on nothing of the JAX package; this slice serves the
-dense llama3-8b family only."""
+"""Architecture registry of the port: ``get_config("llama3-8b")``,
+``get_config("olmoe-1b-7b")`` and their ``-tiny`` variants.  The config
+dataclasses are copies of ``repro.configs`` so the port depends on nothing
+of the JAX package; the port serves the dense llama3-8b family and the
+olmoe MoE family."""
 from __future__ import annotations
 
 import importlib
@@ -12,6 +13,7 @@ from repro_torch.configs.base import (INPUT_SHAPES, FreezeConfig, InputShape,
 
 _ARCH_MODULES = {
     "llama3-8b": "llama3_8b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
 }
 
 

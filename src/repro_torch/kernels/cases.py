@@ -42,6 +42,8 @@ VISIBLE_SHAPES = [(1, 4, 128, 8, 8, 64), (2, 6, 64, 8, 2, 64),
                   (3, 5, 32, 16, 8, 128)]
 # B, P, page, H, KVH, hd of one decode step of llama3-8b in the engine
 MAIN_PATH_SHAPE = (4, 8, 64, 32, 8, 128)
+# the same for olmoe-1b-7b: 16 query heads on 16 kv heads (G = 1)
+MOE_MAIN_PATH_SHAPE = (4, 8, 64, 16, 16, 128)
 # P = 2 * PAGE_SPLITS + 1: three pages a block of the CUDA walk, the last
 # split two pages long
 SPLIT_SHAPE = (2, 2 * PAGE_SPLITS + 1, 16, 8, 2, 64)
@@ -156,18 +158,18 @@ def quant_case(shape, dtype, mode) -> Case:
                 zero_rel_pages=(1,), mode=mode, full=dict(base, **x))
 
 
-def main_path_case() -> Case:
+def main_path_case(shape=MAIN_PATH_SHAPE) -> Case:
     """The serving shape: bf16, some pages unmapped, some frozen, a
     partly written tail page."""
-    B, P, page, H, KVH, hd = MAIN_PATH_SHAPE
+    B, P, page, H, KVH, hd = shape
     rng = np.random.RandomState(11)
-    x = _qkv(rng, *MAIN_PATH_SHAPE)
+    x = _qkv(rng, *shape)
     pt = _arange_table(B, P)
     pt[:, -1] = -1                           # the free tail-reserve slot
     vis = rng.rand(B, P) < 0.8
     sm = np.ones((B, P, page), bool)
     sm[:, P - 2, page // 2:] = False         # partly written tail page
-    return Case("main-path-" + "x".join(map(str, MAIN_PATH_SHAPE))
+    return Case("main-path-" + "x".join(map(str, shape))
                 + "-bfloat16", "bfloat16",
                 dict(x, slot_mask=sm, page_table=pt, page_visible=vis),
                 zero_rel_pages=(P - 1,))
@@ -291,15 +293,16 @@ def staging_slot_pair():
 STAGING_SLOTS = 3
 
 
-def staged_layout_pair(dtype: str = "bfloat16", S: int = STAGING_SLOTS):
+def staged_layout_pair(dtype: str = "bfloat16", S: int = STAGING_SLOTS,
+                       shape=MAIN_PATH_SHAPE):
     """The main-path case at its pool of P pages, and the same pages at the
     async engine's layout of P + S: the S staging slots after them hold
     live K/V with every mask bit set but are unmapped, as the engine leaves
     them.  Called with ``reserved_slots=S``, the kernel must give the P
     pool's output and relevance bit for bit (relevance 0 on the staging
     slots).  Returns (P case, P + S case, S)."""
-    base = main_path_case()
-    B, P, page, H, KVH, hd = MAIN_PATH_SHAPE
+    base = main_path_case(shape)
+    B, P, page, H, KVH, hd = shape
     rng = np.random.RandomState(13)
     extra = _qkv(rng, B, S, page, H, KVH, hd)
     x = dict(base.inputs)
@@ -311,23 +314,25 @@ def staged_layout_pair(dtype: str = "bfloat16", S: int = STAGING_SLOTS):
         [x["page_table"], np.full((B, S), -1, np.int32)], axis=1)
     x["page_visible"] = np.concatenate(
         [x["page_visible"], np.ones((B, S), bool)], axis=1)
-    shape = (B, P + S, page, H, KVH, hd)
+    staged_shape = (B, P + S, page, H, KVH, hd)
     plain = dataclasses.replace(base, dtype=dtype)
-    staged = Case("main-path-staged-" + "x".join(map(str, shape)) + "-"
-                  + dtype, dtype, x,
+    staged = Case("main-path-staged-" + "x".join(map(str, staged_shape))
+                  + "-" + dtype, dtype, x,
                   zero_rel_pages=base.zero_rel_pages
                   + tuple(range(P, P + S)))
     return plain, staged, S
 
 
-def quantized_layout_pair(mode: str, dtype: str = "bfloat16"):
+def quantized_layout_pair(mode: str, dtype: str = "bfloat16",
+                          shape=MAIN_PATH_SHAPE):
     """The async main path's P + S layout with every other live page
-    quantized in ``mode`` (13 of its 25 live pages), as the engine leaves a
-    pool: payload values in the pool, the mode in ``page_quant``, per-page
-    per-kv-head scales.  ``full`` holds the same pages unquantized (rounded
-    to ``dtype`` first) for the lossy-envelope check.  Returns (quantized
-    case, the same pages with no flag set and unit scales, S)."""
-    _, staged, S = staged_layout_pair(dtype)
+    quantized in ``mode`` (13 of its 25 live pages at llama3-8b's shape),
+    as the engine leaves a pool: payload values in the pool, the mode in
+    ``page_quant``, per-page per-kv-head scales.  ``full`` holds the same
+    pages unquantized (rounded to ``dtype`` first) for the lossy-envelope
+    check.  Returns (quantized case, the same pages with no flag set and
+    unit scales, S)."""
+    _, staged, S = staged_layout_pair(dtype, shape=shape)
     x = {k: round_to(a, dtype) if k in FLOAT_INPUTS else a
          for k, a in staged.inputs.items()}
     pt, vis, sm = x["page_table"], x["page_visible"], x["slot_mask"]
@@ -339,6 +344,8 @@ def quantized_layout_pair(mode: str, dtype: str = "bfloat16"):
     B, P = pt.shape
     KVH = x["k_pages"].shape[3]
     shape = "x".join(map(str, x["k_pages"].shape[:2]))
+    if KVH != MAIN_PATH_SHAPE[4]:
+        shape += f"-kvh{KVH}"
     quantized = Case(f"main-path-staged-{mode}-{shape}-{dtype}", dtype,
                      dict(x, k_pages=kq, v_pages=vq,
                           page_quant=flags.astype(np.int32)
@@ -351,6 +358,22 @@ def quantized_layout_pair(mode: str, dtype: str = "bfloat16"):
                           kv_scales=np.ones((B, P, 2, KVH), np.float32)),
                      zero_rel_pages=staged.zero_rel_pages)
     return quantized, unflagged, S
+
+
+MOE_KINDS = DTYPES + ("int8", "fp8")
+
+
+def moe_case(kind: str) -> Tuple[Case, int]:
+    """Kernel 1 at olmoe-1b-7b's decode shape (H = KVH = 16, G = 1): the
+    async main path's P + S layout at f32 or bf16 (``kind`` a dtype), or
+    with every other live page quantized in ``kind`` (int8, fp8; bf16).
+    Returns (case, S): the kernel is called with ``reserved_slots=S`` as
+    the engine calls it."""
+    if kind in DTYPES:
+        _, case, S = staged_layout_pair(kind, shape=MOE_MAIN_PATH_SHAPE)
+    else:
+        case, _, S = quantized_layout_pair(kind, shape=MOE_MAIN_PATH_SHAPE)
+    return case, S
 
 
 def dead_lane_inputs():

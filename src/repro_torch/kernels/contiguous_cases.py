@@ -33,6 +33,8 @@ ATTN_SWEEP = [(1, 512, 8, 8, 64), (2, 1024, 8, 4, 64), (2, 512, 4, 1, 128),
 # one layer of llama3-8b in ContinuousEngine's decode step (4 lanes,
 # max_seq 2048), and the Table-1 protocol's cache (max_seq 560, 1 lane)
 MAIN_PATH_SHAPE = (4, 2048, 32, 8, 128)
+# the same for olmoe-1b-7b: 16 query heads on 16 kv heads (G = 1)
+MOE_MAIN_PATH_SHAPE = (4, 2048, 16, 16, 128)
 TABLE1_SHAPE = (1, 560, 32, 8, 128)
 SPLIT_SHAPE = (8, 1200, 16, 8, 64)
 # the slot layout of the cases above was written for chunks of 128 slots;
@@ -119,11 +121,13 @@ def attn_cases() -> List[AttnCase]:
     return out
 
 
-def main_path_case() -> AttnCase:
-    B, S, H, KVH, hd = MAIN_PATH_SHAPE
+def main_path_case(shape=MAIN_PATH_SHAPE,
+                   dtype: str = "bfloat16") -> AttnCase:
+    B, S, H, KVH, hd = shape
     rng = np.random.RandomState(7)
-    x = _qkv(rng, B, S, H, KVH, hd, "bfloat16")
-    return AttnCase("main-path-4x2048-bfloat16", "bfloat16",
+    x = _qkv(rng, B, S, H, KVH, hd, dtype)
+    heads = "" if shape == MAIN_PATH_SHAPE else f"x{H}x{KVH}"
+    return AttnCase(f"main-path-{B}x{S}{heads}-{dtype}", dtype,
                     dict(x, active_mask=_main_path_mask(rng, B, S)))
 
 

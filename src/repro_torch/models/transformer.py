@@ -1,7 +1,7 @@
-"""Decoder-only LM for attention-only dense stacks (PyTorch counterpart of
-``repro.models.transformer``): embedding, prefill (whole prompt or
-chunked) into a contiguous cache, the contiguous decode step of the
-static and continuous engines, and the paged decode step.
+"""Decoder-only LM for attention-only stacks, dense or MoE (PyTorch
+counterpart of ``repro.models.transformer``): embedding, prefill (whole
+prompt or chunked) into a contiguous cache, the contiguous decode step of
+the static and continuous engines, and the paged decode step.
 
 Parameters keep ``repro``'s stacked layout: ``params["blocks"]["l0"]``
 holds every layer's tensors with a leading layer dim, and the layer scan of
@@ -9,7 +9,9 @@ the reference is a Python loop here.  Decode integrates ASR-KF-EGR per
 attention layer: the attention kernel's |Q.K| products double as the
 relevance feeding the freeze schedule (token-granular on the contiguous
 path, page-granular on the paged one), and entropy-guided recovery runs on
-the final logits.  Caches and freeze counters are updated IN PLACE.
+the final logits.  A MoE layer's FFN is ``models/moe.py``'s capacity-routed
+top-k experts (its load-balance loss is dropped: nothing here trains).
+Caches and freeze counters are updated IN PLACE.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.core.recovery import (RecoveryState, init_recovery_state,
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import ParamSpec
 
 
@@ -37,15 +40,16 @@ from repro_torch.models.layers import ParamSpec
 @dataclasses.dataclass(frozen=True)
 class Role:
     kind: str      # "attn" (the only kind this port serves so far)
-    moe: bool
+    moe: bool      # the layer's FFN is models/moe.py's, not the SwiGLU MLP
 
 
 def unit_roles(cfg: ModelConfig) -> List[Role]:
-    """Roles of the layers inside one stacked unit."""
-    if cfg.arch_type == "ssm" or cfg.attn_every > 1 or cfg.num_experts:
+    """Roles of the layers inside one stacked unit (one layer: the port
+    serves no interleaved stack yet)."""
+    if cfg.arch_type == "ssm" or cfg.attn_every > 1:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention-only dense stacks")
-    return [Role("attn", False)]
+            f"{cfg.name}: the port serves attention-only stacks")
+    return [Role("attn", cfg.is_moe_layer(0))]
 
 
 def num_units(cfg: ModelConfig) -> int:
@@ -63,11 +67,12 @@ def attn_layer_count(cfg: ModelConfig) -> int:
 # --------------------------------------------------------------------- #
 def schema(cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.d_model
+    moe = unit_roles(cfg)[0].moe
     unit = {"l0": {"norm1": ParamSpec((d,), scale=0.0),
                    "attn": L.attention_schema(cfg),
                    "norm2": ParamSpec((d,), scale=0.0),
-                   "ffn": L.mlp_schema(cfg)}}
-    unit_roles(cfg)
+                   "ffn": MOE.moe_schema(cfg) if moe
+                   else L.mlp_schema(cfg)}}
     vp = cfg.padded_vocab
     return {
         "embed": ParamSpec((vp, d)),
@@ -93,6 +98,18 @@ def layer_params(params, l: int) -> Dict[str, Any]:
         return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
             else t[l]
     return take(params["blocks"]["l0"])
+
+
+def ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A layer's FFN on ``x`` (B, S, D), or (B, D) for a decode step: the
+    SwiGLU MLP, or the MoE of a layer whose schema gave it a router; a
+    decode step routes as a group of one token a lane, as the reference's
+    ``moe_forward(xn2[:, None])`` does."""
+    if "router" not in p:
+        return L.mlp_forward(p, x)
+    if x.dim() == 2:
+        return MOE.moe_forward(p, x[:, None], cfg)[0][:, 0]
+    return MOE.moe_forward(p, x, cfg)[0]
 
 
 # --------------------------------------------------------------------- #
@@ -171,7 +188,7 @@ def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
         state.cache_k[l, :, :S] = k.to(state.cache_k.dtype)
         state.cache_v[l, :, :S] = v.to(state.cache_v.dtype)
         xn2 = L.rms_norm(x, lp["norm2"] + 1.0, cfg.norm_eps)
-        x = x + L.mlp_forward(lp["ffn"], xn2)
+        x = x + ffn(lp["ffn"], xn2, cfg)
     xl = L.rms_norm(x[:, -1], params["final_norm"] + 1.0, cfg.norm_eps)
     return unembed(params, cfg, xl), state
 
@@ -197,7 +214,7 @@ def lm_prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
         o = L.flash_attention(q, ck, cv, causal=True, q_offset=pos0)
         x = x + L.attention_out(lp["attn"], o)
         xn2 = L.rms_norm(x, lp["norm2"] + 1.0, cfg.norm_eps)
-        x = x + L.mlp_forward(lp["ffn"], xn2)
+        x = x + ffn(lp["ffn"], xn2, cfg)
     xl = L.rms_norm(x[:, -1], params["final_norm"] + 1.0, cfg.norm_eps)
     return unembed(params, cfg, xl), state
 
@@ -256,7 +273,7 @@ def lm_decode_step(
             OPS.freeze_state_update(fz, rel, pos, step, fcfg, out=fz,
                                     active=False, active_count=act_count)
         xn2 = L.rms_norm(x, lp["norm2"] + 1.0, cfg.norm_eps)
-        x = x + L.mlp_forward(lp["ffn"], xn2)
+        x = x + ffn(lp["ffn"], xn2, cfg)
     x = L.rms_norm(x, params["final_norm"] + 1.0, cfg.norm_eps)
     logits = unembed(params, cfg, x)
     act_cnt = B * cfg.num_layers if enable_freeze else 0
@@ -456,7 +473,7 @@ def lm_decode_step_paged(
                 dst.copy_(src)
             nfro = nfro + torch.sum(finfo["n_frozen"])
         xn2 = L.rms_norm(x, lp["norm2"] + 1.0, cfg.norm_eps)
-        x = x + L.mlp_forward(lp["ffn"], xn2)
+        x = x + ffn(lp["ffn"], xn2, cfg)
     x = L.rms_norm(x, params["final_norm"] + 1.0, cfg.norm_eps)
     logits = unembed(params, cfg, x)
     info: Dict[str, torch.Tensor] = {"n_frozen_pages": nfro}

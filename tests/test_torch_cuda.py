@@ -598,3 +598,86 @@ def test_tiny_server_trace_matches_cpu(card, name):
     assert SV.end_counts(d) == SV.EXPECTED[name]
     assert K.paged_decode_attention_cuda.launches == sum(
         s.engine.wall_step for s in d.opened) * cfgs["plain"].num_layers
+
+
+# --------------------------------------------------------------------- #
+# the MoE family: kernels 1 and 2 at olmoe-1b-7b's shapes (G = 1), and the
+# tiny MoE model served on the card and on the CPU
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("kind", C.MOE_KINDS)
+def test_kernel_matches_plain_version_at_olmoe_shape(card, kind):
+    """Kernel 1 at H = KVH = 16 on the async paged path's P + S pool (f32,
+    bf16, int8 and fp8 pages), called with ``reserved_slots`` as the
+    engine calls it, against its plain version."""
+    case, S = C.moe_case(kind)
+    args = C.call_args(C.to_torch(case.inputs, case.dtype, card))
+    out_k, rel_k = K.paged_decode_attention_cuda(*args, reserved_slots=S)
+    out_p, rel_p = paged_decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out_k.float().cpu().numpy(),
+                               out_p.float().cpu().numpy(), **case.tols)
+    np.testing.assert_allclose(rel_k.cpu().numpy(), rel_p.cpu().numpy(),
+                               **case.tols)
+    for p in case.zero_rel_pages:
+        np.testing.assert_array_equal(rel_k[:, p].cpu().numpy(), 0.0)
+
+
+@pytest.mark.parametrize("dtype", C.DTYPES)
+def test_masked_kernel_matches_plain_version_at_olmoe_shape(card, dtype):
+    """Kernel 2 at H = KVH = 16, B = 4, S = 2048 against its plain
+    version."""
+    case = CC.main_path_case(CC.MOE_MAIN_PATH_SHAPE, dtype)
+    out_k, rel_k = _run_masked(K2.freeze_decode_attention_cuda, case.inputs,
+                               dtype, card)
+    out_p, rel_p = _run_masked(freeze_decode_attention_ref, case.inputs,
+                               dtype, card)
+    np.testing.assert_allclose(out_k, out_p, **case.tols)
+    np.testing.assert_allclose(rel_k, rel_p, **case.tols)
+    np.testing.assert_array_equal(rel_k[~case.inputs["active_mask"]], 0.0)
+
+
+@pytest.mark.parametrize("kind", ["paged", "contiguous"])
+def test_tiny_moe_engine_matches_cpu(card, kind):
+    """olmoe-1b-7b-tiny at f32, greedy, on prompts in three buckets: the
+    card async and sync arms give the CPU's tokens and counters, through
+    kernel 1 (paged) or kernels 2 and 3 (contiguous) once a layer a
+    step."""
+    import dataclasses
+    from repro_torch.launch.serve import launcher_config, serve_fifo
+    from repro_torch.models import model as MD
+    from repro_torch.serving.config import ServingConfig
+    from repro_torch.serving.engine import (ContinuousEngine,
+                                            PagedContinuousEngine, Request)
+    from repro_torch.serving.sampling import SamplingParams
+    cfg = launcher_config("olmoe-1b-7b", tiny=True)
+    cfg = dataclasses.replace(cfg, dtype="float32", freeze=dataclasses.
+                              replace(cfg.freeze, page_size=8, window=4,
+                                      quantile=0.6, k_soft=1.0))
+    params = MD.init_params(cfg, 0, "cpu")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (7, 9, 15, 17)]
+    fns = (K.paged_decode_attention_cuda, K2.freeze_decode_attention_cuda,
+           K3.relevance_freeze_cuda)
+    runs = []
+    for dev, is_async in ((card, True), (card, False), ("cpu", False)):
+        sv = ServingConfig(max_seq=96, n_lanes=2, prefill_chunk=8,
+                           async_pipeline=is_async,
+                           max_active_pages=4 if kind == "paged" else None)
+        eng = (PagedContinuousEngine if kind == "paged" else
+               ContinuousEngine)(cfg, _to(params, dev), sv, device=dev)
+        reqs = [Request(u, q, 30, SamplingParams.greedy())
+                for u, q in enumerate(prompts)]
+        for fn in fns:
+            fn.launches = 0
+        serve_fifo(eng, reqs)
+        counters = (eng.ctl.n_swap_out, eng.ctl.n_swap_in) \
+            if kind == "paged" else \
+            (eng.offloader.n_offloads, eng.offloader.n_restores)
+        n = eng.wall_step * cfg.num_layers if dev is card else 0
+        want = (n, 0, 0) if kind == "paged" else (0, n, n)
+        assert tuple(fn.launches for fn in fns) == want, (dev, is_async)
+        runs.append(([r.result.tolist() for r in reqs],
+                     [r.telemetry.rewinds for r in reqs], counters))
+    assert runs[0] == runs[2] and runs[1] == runs[2]
+    assert runs[2][2][0] > 0, runs[2][2]

@@ -81,6 +81,46 @@ def test_server_modules_stand_alone(module):
     assert res.returncode == 0, res.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models.moe",
+                                    "repro_torch.configs.olmoe_1b_7b"])
+def test_moe_modules_stand_alone(module):
+    """The MoE family's modules, each imported alone, load neither JAX nor
+    any module of the JAX package; the config loads no torch either."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({module!r})
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        if {module!r}.startswith("repro_torch.configs"):
+            assert "torch" not in sys.modules
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+def test_olmoe_entry_points_raise_without_a_card():
+    """The MoE family goes through the same entry points: each needs a
+    card unless the CPU is asked for."""
+    cfg = get_config("olmoe-1b-7b-tiny")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MD.init_params(cfg)
+    params = MD.init_params(cfg, device="cpu")
+    sv = ServingConfig(max_seq=64, n_lanes=1, max_active_pages=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedContinuousEngine(cfg, params, sv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousEngine(cfg, params, sv.replace(max_active_pages=None))
+    for mode in ([], ["--paged"], ["--static"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--arch", "olmoe-1b-7b", "--tiny", "--requests",
+                        "1"] + mode)
+
+
 def test_entry_points_raise_without_a_card():
     cfg = get_config("llama3-8b-tiny")
     if torch.cuda.is_available():

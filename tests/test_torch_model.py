@@ -1,7 +1,10 @@
 """The port's llama3-8b-tiny at f32 with weights bridged from ``repro``'s
 ``init_params``: the bridge itself, chunked prefill (logits and caches)
-and three consecutive paged decode steps (logits, then the whole state)."""
+and three consecutive paged decode steps (logits, then the whole state).
+The same checks run on olmoe-1b-7b-tiny (every FFN a capacity-routed MoE),
+and contiguous decode steps on both."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +17,7 @@ from repro.core.paging import PageFreezeState as RFz
 from repro.core.recovery import RecoveryState as RRec
 from repro.models import model as RMD
 from repro_torch.configs import get_config as tget_config
+from repro_torch.core.freeze import FreezeState as TCFz
 from repro_torch.core.paging import PageFreezeState as TFz
 from repro_torch.core.recovery import RecoveryState as TRec
 from repro_torch.models import model as TMD
@@ -47,18 +51,26 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def models():
-    rcfg = rget_config("llama3-8b-tiny")
+ARCHS = ("llama3-8b-tiny", "olmoe-1b-7b-tiny")
+
+
+@functools.lru_cache(maxsize=None)
+def _models(arch):
+    rcfg = rget_config(arch)
     rcfg = dataclasses.replace(rcfg, dtype="float32", freeze=dataclasses.
                                replace(rcfg.freeze, **FREEZE))
-    tcfg = tget_config("llama3-8b-tiny")
+    tcfg = tget_config(arch)
     tcfg = dataclasses.replace(tcfg, dtype="float32", freeze=dataclasses.
                                replace(tcfg.freeze, **FREEZE))
     rparams = RMD.init_params(jax.random.PRNGKey(0), rcfg)
     np_tree = jax.tree_util.tree_map(np.asarray, rparams)
     return rcfg, rparams, tcfg, params_from_numpy(np_tree, tcfg, "cpu"), \
         np_tree
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models("llama3-8b-tiny")
 
 
 def _leaves(tree, path=""):
@@ -229,3 +241,65 @@ def test_reset_and_rewind_lane(models):
             np.testing.assert_array_equal(
                 getattr(tstate.recovery, f).numpy(),
                 np.asarray(getattr(rstate.recovery, f)), f)
+
+
+@pytest.mark.parametrize("check", [
+    test_weight_bridge_every_leaf, test_prefill_chunks_logits_and_caches,
+    test_three_paged_decode_steps, test_reset_and_rewind_lane],
+    ids=lambda f: f.__name__[len("test_"):])
+def test_olmoe(check):
+    """The four checks above on olmoe-1b-7b-tiny: the MoE leaves bridge
+    like any other, and chunked prefill and paged decode route as
+    ``repro`` does."""
+    rcfg, _, tcfg, tparams, _ = _models("olmoe-1b-7b-tiny")
+    assert rcfg.num_experts and set(tparams["blocks"]["l0"]["ffn"]) == \
+        {"router", "w_gate", "w_up", "w_down"}
+    check(_models("olmoe-1b-7b-tiny"))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_contiguous_decode_steps(arch):
+    """Whole-prompt prefill, then decode steps of ``lm_decode_step`` over
+    the contiguous cache with per-lane clocks: logits within the decode
+    envelope, freeze and recovery state exact."""
+    rcfg, rparams, tcfg, tparams, _ = _models(arch)
+    rng = np.random.RandomState(3)
+    B, S0, Smax = 2, 20, 40
+    toks = rng.randint(0, rcfg.vocab_size, (B, S0)).astype(np.int32)
+    rstate = RMD.init_decode_state(rcfg, B, Smax)
+    tstate = TMD.init_decode_state(tcfg, B, Smax, "cpu")
+    rl, rstate = RMD.prefill(rparams, rcfg, {"tokens": jnp.asarray(toks)},
+                             rstate)
+    tl, tstate = TMD.prefill(tparams, tcfg,
+                             {"tokens": torch.tensor(toks).long()}, tstate)
+    _close(tl, rl, PREFILL_ENV)
+    # decode from identical caches, held to the decode envelope
+    tstate = tstate._replace(cache_k=torch.tensor(np.asarray(rstate.cache_k)),
+                             cache_v=torch.tensor(np.asarray(rstate.cache_v)))
+    pos, step = np.array([S0, S0 - 4], np.int32), np.array([0, 3], np.int32)
+    frozen = False
+    for s in range(6):
+        tok = rng.randint(0, rcfg.vocab_size, B).astype(np.int32)
+        rl, rstate, rinfo = RMD.decode_step(
+            rparams, rcfg, jnp.asarray(tok), jnp.asarray(pos),
+            jnp.asarray(step), rstate)
+        tl, tstate, tinfo = TMD.decode_step(
+            tparams, tcfg, torch.tensor(tok).long(), torch.tensor(pos),
+            torch.tensor(step), tstate)
+        _close(tl, rl, DECODE_ENV)
+        for f in ("cache_k", "cache_v"):
+            _close(getattr(tstate, f), getattr(rstate, f), DECODE_ENV)
+        for f in TCFz._fields:
+            np.testing.assert_array_equal(
+                getattr(tstate.freeze, f).numpy(),
+                np.asarray(getattr(rstate.freeze, f)), f"step {s} {f}")
+        for f in ("level", "calm_steps", "steps_seen"):
+            np.testing.assert_array_equal(
+                getattr(tstate.recovery, f).numpy(),
+                np.asarray(getattr(rstate.recovery, f)), f)
+        for k in ("n_frozen", "n_active", "spike", "rr_request"):
+            np.testing.assert_array_equal(tinfo[k].numpy(),
+                                          np.asarray(rinfo[k]), k)
+        frozen |= bool(tinfo["n_frozen"].any())
+        pos, step = pos + 1, step + 1
+    assert frozen, "the freeze schedule never fired"
